@@ -1,0 +1,131 @@
+"""The CUDA stiffness kernels vs their plain twins, on the card.
+
+Needs an NVIDIA card with ``nvcc`` (an sm_90a build); each test skips
+where ``torch.cuda.is_available()`` is False. This file imports no JAX,
+so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from ndr_tpu.io.problem import load_problem
+from ndr_tpu_torch.fem import kernels
+from ndr_tpu_torch.fem import multigrid as mg
+from ndr_tpu_torch.fem.simulator import problem_from_config
+from ndr_tpu_torch.training.classic import ground_truth_topopt
+from ndr_tpu_torch.utils import profile_oc
+from ndr_tpu_torch.utils.torch_setup import setup
+
+pytestmark = pytest.mark.gpu
+
+CASES = [
+    ("problems/2d/mbb_beam.json", (12, 6)),
+    ("problems/3d/cantilever_flexion.json", (8, 4, 4)),
+    ("problems/3d/cantilever_flexion.json", (6, 4, 2)),
+    ("problems/3d/cantilever_flexion.json", (32, 16, 16)),
+]
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    setup()
+    return torch.device("cuda")
+
+
+def _rel(out, ref) -> float:
+    return float((out.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+
+@pytest.mark.parametrize("prob_path,dims", CASES)
+def test_fine_kernels_match_twins(device, prob_path, dims):
+    prob, grid = problem_from_config(load_problem(prob_path), dims=dims,
+                                     device=device)
+    rng = np.random.default_rng(0)
+    rho = torch.tensor(rng.uniform(1e-3, 1.0, grid.dims), device=device)
+    u = torch.tensor(1e3 * rng.standard_normal(grid.nodes_per_dim + (grid.ndim,)),
+                     device=device)
+    young = prob.young(rho)
+    kernels.reset_launches()
+    args32 = (u.float(), young.float(), prob.K0.float())
+    f32 = kernels.apply_k_fine_f32(*args32, grid)
+    f64 = kernels.apply_k_fine_f64(u, young, prob.K0, grid)
+    torch.cuda.synchronize()
+    # fp32: the summation order differs; f64: rounding only
+    assert _rel(f32, kernels.apply_k_fine_plain(*args32, grid)) < 1e-5
+    assert _rel(f64, kernels.apply_k_fine_plain(u, young, prob.K0, grid)) < 1e-12
+    assert kernels.launches["apply_k_fine_f32"] == 1
+    assert kernels.launches["apply_k_fine_f64"] == 1
+
+
+@pytest.mark.parametrize("prob_path,dims", CASES)
+def test_cached_kernel_matches_twin(device, prob_path, dims):
+    prob, grid = problem_from_config(load_problem(prob_path), dims=dims,
+                                     dtype=torch.float32, device=device)
+    cfg = mg.build_mg_config(prob, 1)
+    rng = np.random.default_rng(3)
+    young = prob.young(torch.tensor(rng.uniform(0.1, 1.0, grid.dims),
+                                    dtype=torch.float32, device=device))
+    grid1 = cfg.levels[1].grid
+    stream = kernels.ke_stream_layout(mg.build_level_ke(cfg, young, 1), grid1)
+    u = torch.tensor(rng.standard_normal(grid1.nodes_per_dim + (grid1.ndim,)),
+                     dtype=torch.float32, device=device)
+    f = kernels.apply_k_cached_f32(u, stream, grid1)
+    torch.cuda.synchronize()
+    assert _rel(f, kernels.apply_k_cached_f32_plain(u, stream, grid1)) < 1e-5
+
+
+def test_kernels_refuse_f64_hierarchy(device):
+    """Kernels on for a float64 CUDA hierarchy raise rather than run the
+    plain ops on the card; kernels off is an explicit choice of them."""
+    cfg = load_problem(CASES[1][0])
+    for use_kernels in (True, "auto"):
+        with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
+            ground_truth_topopt(cfg, dims=(8, 4, 4), max_iter=1,
+                                multigrid_levels=1, dtype=torch.float64,
+                                device=device, use_kernels=use_kernels,
+                                log=lambda s: None)
+    prob, grid = problem_from_config(cfg, dims=(8, 4, 4), dtype=torch.float64,
+                                     device=device)
+    settings = mg.MGSolverSettings(num_levels=1, smoother="chebyshev",
+                                   use_kernels=True)
+    rho = torch.full(grid.dims, 0.5, dtype=torch.float64, device=device)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
+        mg.make_mg_solver(prob, settings)(rho)
+    kernels.reset_launches()
+    u, _ = mg.make_mg_solver(
+        prob, dataclasses.replace(settings, use_kernels=False))(rho)
+    assert u.dtype == torch.float64 and bool(torch.isfinite(u).all())
+    assert kernels.launches == {name: 0 for name in kernels.launches}
+
+
+def test_profile_oc_small(device, capsys):
+    profile_oc.main(["--grid", "[16,8,8]", "--mgl", "2", "--steps", "1"])
+    out = capsys.readouterr().out
+    for tag in ("[on]", "[off]"):
+        assert f"{tag} s/OC-iter with synced sections" in out
+        assert f"{tag} traced step wall" in out
+        assert f"{tag}   solve total" in out
+
+
+def test_wrappers_refuse_bad_inputs(device):
+    prob, grid = problem_from_config(load_problem(CASES[1][0]), dims=CASES[1][1],
+                                     device=device)
+    u = torch.zeros(grid.nodes_per_dim + (3,), device=device)
+    young = torch.ones(grid.dims, device=device)
+    K0 = prob.K0.float()
+    with pytest.raises(TypeError):
+        kernels.apply_k_fine_f32(u.double(), young, K0, grid)
+    with pytest.raises(ValueError):
+        kernels.apply_k_fine_f32(u[:-1], young, K0, grid)
+    strided = torch.ones(grid.dims[::-1], device=device).permute(2, 1, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.apply_k_fine_f32(u, strided, K0, grid)
+    with pytest.raises(ValueError):
+        kernels.apply_k_fine_f32(u, young.cpu(), K0, grid)

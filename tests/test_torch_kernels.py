@@ -1,0 +1,128 @@
+"""Plain twins of the CUDA stiffness kernels vs the JAX Pallas kernels.
+
+Each twin in ``ndr_tpu_torch.fem.kernels`` is the function its CUDA
+kernel is held to on the card; here it is held to the Pallas kernel it
+replaces, run in interpreter mode as ``tests/test_pallas.py`` runs it.
+The kernels themselves need the card (``tests/test_torch_cuda.py``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ndr_tpu.fem import multigrid as jmg
+from ndr_tpu.fem import pallas_kernels as pk
+from ndr_tpu.fem.simulator import problem_from_config as j_problem_from_config
+from ndr_tpu.io.problem import load_problem
+from ndr_tpu_torch.fem import kernels
+
+CASES = [
+    ("problems/2d/mbb_beam.json", (12, 6)),
+    ("problems/3d/cantilever_flexion.json", (8, 4, 4)),
+    ("problems/3d/cantilever_flexion.json", (6, 4, 2)),
+]
+# the interpreted cached and two-float Pallas kernels are slow on the CPU;
+# one 2-D and one 3-D shape (6x4x2: odd element count along y) suffice
+SLOW_CASES = [CASES[0], CASES[2]]
+
+
+def _setup(prob_path, dims, dtype, seed):
+    prob, grid = j_problem_from_config(load_problem(prob_path), dims=dims,
+                                       dtype=dtype)
+    return prob, grid, np.random.default_rng(seed)
+
+
+def _rel(out: torch.Tensor, ref) -> float:
+    ref = np.asarray(ref, np.float64)
+    return float(np.abs(out.double().numpy() - ref).max() / np.abs(ref).max())
+
+
+@pytest.mark.parametrize("prob_path,dims", CASES)
+def test_fine_f32_twin_matches_pallas_flat(prob_path, dims):
+    prob, grid, rng = _setup(prob_path, dims, jnp.float32, 0)
+    young = np.asarray(prob.young(
+        jnp.asarray(rng.uniform(0.1, 1.0, grid.dims), jnp.float32)))
+    u = rng.standard_normal(grid.nodes_per_dim + (grid.ndim,)).astype(np.float32)
+    K0_32 = np.asarray(prob.K0, np.float32)
+    ref = pk.apply_k_pallas_flat(jnp.asarray(u), jnp.asarray(young),
+                                 np.asarray(prob.K0), grid, interpret=True)
+    out = kernels.apply_k_fine_plain(torch.tensor(u), torch.tensor(young),
+                                     torch.tensor(K0_32), grid)
+    assert out.dtype == torch.float32
+    assert _rel(out, ref) < 1e-5
+
+
+@pytest.mark.parametrize("prob_path,dims", SLOW_CASES)
+def test_cached_f32_twin_matches_pallas_cached(prob_path, dims):
+    """On a real Galerkin level-1 Ke stack, in the stream layout."""
+    prob, grid, rng = _setup(prob_path, dims, jnp.float32, 3)
+    mgcfg = jmg.build_mg_config(prob, 1)
+    young = prob.young(jnp.asarray(rng.uniform(0.1, 1.0, grid.dims), jnp.float32))
+    Ke1 = jmg.build_level_ke(mgcfg, young, 1)
+    grid1 = mgcfg.levels[1].grid
+    u = rng.standard_normal(grid1.nodes_per_dim + (grid1.ndim,)).astype(np.float32)
+    ref = pk.apply_k_pallas_cached(jnp.asarray(u), pk.ke_stream_layout(Ke1, grid1),
+                                   grid1, interpret=True)
+    stream = kernels.ke_stream_layout(torch.tensor(np.asarray(Ke1)), grid1)
+    np.testing.assert_array_equal(stream.numpy(),
+                                  np.asarray(pk.ke_stream_layout(Ke1, grid1)))
+    out = kernels.apply_k_cached_f32_plain(torch.tensor(u), stream, grid1)
+    assert out.dtype == torch.float32
+    assert _rel(out, ref) < 1e-5
+
+
+@pytest.mark.parametrize("prob_path,dims", SLOW_CASES)
+def test_fine_f64_twin_matches_pallas_df(prob_path, dims):
+    """The two-float Pallas kernel's own bound (test_pallas.py) is 2e-10."""
+    prob, grid, rng = _setup(prob_path, dims, jnp.float64, 1)
+    young64 = np.asarray(prob.young(
+        jnp.asarray(rng.uniform(1e-4, 1.0, grid.dims), jnp.float64)))
+    u = 1e4 * rng.standard_normal(grid.nodes_per_dim + (grid.ndim,))
+    f32 = np.float32
+    u_hi = u.astype(f32)
+    u_lo = (u - u_hi.astype(np.float64)).astype(f32)
+    y_hi = young64.astype(f32)
+    y_lo = (young64 - y_hi.astype(np.float64)).astype(f32)
+    ref = pk.apply_k_pallas_df(*map(jnp.asarray, (u_hi, u_lo, y_hi, y_lo)),
+                               np.asarray(prob.K0), grid, interpret=True)
+    out = kernels.apply_k_fine_plain(torch.tensor(u), torch.tensor(young64),
+                                     torch.tensor(np.asarray(prob.K0)), grid)
+    assert out.dtype == torch.float64
+    assert _rel(out, ref) < 2e-10
+
+
+@pytest.mark.parametrize("prob_path,dims", CASES)
+def test_wrappers_take_twins_on_cpu(prob_path, dims):
+    """A CPU tensor goes to the plain twin: same result, no launch."""
+    prob, grid, rng = _setup(prob_path, dims, jnp.float32, 4)
+    T = lambda a, dt: torch.tensor(np.asarray(a), dtype=dt)
+    young = rng.uniform(0.1, 1.0, grid.dims)
+    u = rng.standard_normal(grid.nodes_per_dim + (grid.ndim,))
+    K0 = np.asarray(prob.K0)
+    d = K0.shape[0]
+    Ke = rng.standard_normal(grid.dims + (d, d))
+    stream = kernels.ke_stream_layout(T(Ke, torch.float32), grid)
+    kernels.reset_launches()
+    for f32, plain, args in [
+        (kernels.apply_k_fine_f32, kernels.apply_k_fine_plain,
+         (T(u, torch.float32), T(young, torch.float32), T(K0, torch.float32))),
+        (kernels.apply_k_fine_f64, kernels.apply_k_fine_plain,
+         (T(u, torch.float64), T(young, torch.float64), T(K0, torch.float64))),
+        (kernels.apply_k_cached_f32, kernels.apply_k_cached_f32_plain,
+         (T(u, torch.float32), stream)),
+    ]:
+        torch.testing.assert_close(f32(*args, grid), plain(*args, grid),
+                                   rtol=0, atol=0)
+    assert kernels.launches == {name: 0 for name in kernels.launches}
+    # the stream layout round-trips
+    torch.testing.assert_close(kernels.ke_from_stream(stream, grid),
+                               T(Ke, torch.float32), rtol=0, atol=0)
+
+
+def test_wrapper_refuses_other_devices():
+    prob, grid, rng = _setup(*CASES[1], jnp.float32, 5)
+    u = torch.zeros(grid.nodes_per_dim + (3,), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        kernels.apply_k_fine_f32(u, torch.zeros(grid.dims, device="meta"),
+                                 torch.zeros(24, 24, device="meta"), grid)

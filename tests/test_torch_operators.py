@@ -1,0 +1,139 @@
+"""ndr_tpu_torch plain operators and problem setup vs the JAX package.
+
+Same inputs (numpy, seeded) through ``ndr_tpu`` and its PyTorch port, in
+float64 on the CPU. The plain ops are the oracles the CUDA kernels are
+held to, so they are held to the JAX ops at 1e-12 of max|f| (only the
+summation order differs).
+"""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ndr_tpu.fem import operators as jops
+from ndr_tpu.fem import topopt as jtopopt
+from ndr_tpu.fem.simulator import problem_from_config as j_problem_from_config
+from ndr_tpu.io.problem import load_problem
+from ndr_tpu_torch.fem import operators as tops
+from ndr_tpu_torch.fem import topopt as ttopopt
+from ndr_tpu_torch.fem.simulator import problem_from_config as t_problem_from_config
+from ndr_tpu_torch.fem.simulator import problem_from_numpy
+from ndr_tpu_torch.utils.torch_setup import resolve_device
+
+CASES = [
+    ("problems/2d/mbb_beam.json", (12, 6)),
+    ("problems/3d/cantilever_flexion.json", (8, 4, 4)),
+    ("problems/3d/cantilever_flexion.json", (6, 4, 2)),
+]
+OPS = ["apply_k", "apply_k_cached", "node_diag_blocks", "invert_blocks",
+       "compliance_gradient"]
+
+
+def _problems(prob_path, dims):
+    cfg = load_problem(prob_path)
+    pj, grid = j_problem_from_config(cfg, dims=dims, dtype=jnp.float64)
+    pt, _ = t_problem_from_config(cfg, dims=dims, dtype=torch.float64)
+    return pj, pt, grid
+
+
+def test_port_imports_without_jax():
+    code = ("import sys, ndr_tpu_torch.training.train_voxelfem, "
+            "ndr_tpu_torch.fem.kernels, ndr_tpu_torch.utils.profile_oc; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')]; "
+            "assert not bad, bad; print('ok')")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("prob_path,dims", CASES)
+def test_plain_op_matches_jax(prob_path, dims, op):
+    pj, pt, grid = _problems(prob_path, dims)
+    rng = np.random.default_rng(0)
+    rho = rng.uniform(0.1, 1.0, grid.dims)
+    young = np.asarray(pj.young(jnp.asarray(rho)))
+    u = rng.standard_normal(grid.nodes_per_dim + (grid.ndim,))
+    K0 = np.asarray(pj.K0)
+    d = K0.shape[0]
+    T = lambda a: torch.tensor(np.asarray(a))
+    if op == "apply_k":
+        ref = jops.apply_k(jnp.asarray(u), jnp.asarray(young), pj.K0, grid)
+        out = tops.apply_k(T(u), T(young), pt.K0, grid)
+    elif op == "apply_k_cached":
+        A = rng.standard_normal(grid.dims + (d, d))
+        Ke = A + np.swapaxes(A, -1, -2)
+        ref = jops.apply_k_cached(jnp.asarray(u), jnp.asarray(Ke), grid)
+        out = tops.apply_k_cached(T(u), T(Ke), grid)
+    elif op == "node_diag_blocks":
+        ref = jops.node_diag_blocks(jnp.asarray(young), pj.K0, grid)
+        out = tops.node_diag_blocks(T(young), pt.K0, grid)
+    elif op == "invert_blocks":
+        M = np.asarray(jops.node_diag_blocks(jnp.asarray(young), pj.K0, grid))
+        ref = jops.invert_blocks(jnp.asarray(M))
+        out = tops.invert_blocks(T(M))
+    else:
+        ref = jops.compliance_gradient(jnp.asarray(u), jnp.asarray(rho), pj.K0,
+                                       grid, pj.E0, pj.Emin, pj.gamma)
+        out = tops.compliance_gradient(T(u), T(rho), pt.K0, grid,
+                                       pt.E0, pt.Emin, pt.gamma)
+    ref = np.asarray(ref)
+    assert out.dtype == torch.float64 and tuple(out.shape) == ref.shape
+    err = np.abs(out.numpy() - ref).max() / np.abs(ref).max()
+    assert err < 1e-12, err
+
+
+@pytest.mark.parametrize("prob_path,dims", [CASES[0], CASES[1]])
+def test_problem_from_config_matches_jax(prob_path, dims):
+    pj, pt, grid = _problems(prob_path, dims)
+    assert pt.grid == pj.grid == grid
+    assert pt.K0.dtype == torch.float64
+    np.testing.assert_array_equal(pt.K0.numpy(), np.asarray(pj.K0))
+    np.testing.assert_array_equal(pt.force.numpy(), np.asarray(pj.force))
+    np.testing.assert_array_equal(pt.dirichlet_mask.numpy(),
+                                  np.asarray(pj.dirichlet_mask))
+    assert (pt.E0, pt.Emin, pt.gamma) == (pj.E0, pj.Emin, pj.gamma)
+    # working dtype of the force field; K0 stays float64
+    p32, _ = t_problem_from_config(load_problem(prob_path), dims=dims,
+                                   dtype=torch.float32)
+    assert p32.force.dtype == torch.float32 and p32.K0.dtype == torch.float64
+
+
+def test_state_carry_converters():
+    pj, _, grid = _problems(*CASES[1])
+    pt = problem_from_numpy(np.asarray(pj.K0), np.asarray(pj.force),
+                            np.asarray(pj.dirichlet_mask), grid,
+                            pj.E0, pj.Emin, pj.gamma, device="cpu")
+    np.testing.assert_array_equal(pt.K0.numpy(), np.asarray(pj.K0))
+    np.testing.assert_array_equal(pt.force.numpy(), np.asarray(pj.force))
+    np.testing.assert_array_equal(pt.dirichlet_mask.numpy(),
+                                  np.asarray(pj.dirichlet_mask))
+    rng = np.random.default_rng(2)
+    sj = jtopopt.OCState(
+        x=jnp.asarray(rng.uniform(0, 1, grid.dims), jnp.float32),
+        u=jnp.asarray(rng.standard_normal(grid.nodes_per_dim + (3,))),
+        lambda_min=jnp.asarray(0.75, jnp.float32),
+        lambda_max=jnp.asarray(1.5, jnp.float32))
+    st = ttopopt.oc_state_from_numpy(
+        {f: np.asarray(getattr(sj, f))
+         for f in ("x", "u", "lambda_min", "lambda_max")}, device="cpu")
+    assert st.x.dtype == torch.float32 and st.u.dtype == torch.float64
+    np.testing.assert_array_equal(st.x.numpy(), np.asarray(sj.x))
+    np.testing.assert_array_equal(st.u.numpy(), np.asarray(sj.u))
+    assert (st.lambda_min, st.lambda_max) == (0.75, 1.5)
+
+
+def test_cuda_device_never_falls_back():
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
