@@ -2,18 +2,32 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``ndr_tpu_torch/csrc/``, holds
-each against its plain PyTorch twin on the card, drives the classic
-SIMP-OC path through the ``train_voxelfem`` CLI at 192x96x96 (mgl=3) with
-the kernels on and off, and checks that the run went through every
-kernel. Any failed phase exits non-zero. The last line of standard output
-is one JSON object naming the device.
+Builds the five hand-written CUDA kernels from ``ndr_tpu_torch/csrc/``,
+holds each against its plain PyTorch twin on the card (at the test shapes
+and at the shapes the paths below give it) and times each at 192x96x96
+beside its bound, its twin and one library call (cuSPARSE CSR SpMV on
+the assembled K). Then it drives the port's paths through their CLIs,
+each with the launch counters set to 0 just before and read just after:
 
-Imports no JAX: the machine with the card need not have it.
+  1. classic SIMP-OC (``train_voxelfem``), cantilever 192x96x96, mgl=3,
+     kernels on and off;
+  2. neural TO (``train_xdg``), the north star: bridge 192x96x96, mgl=3,
+     constrained_sigmoid, the 1024/512x4 MLP, with ``--fine-kernel
+     variant`` and with the default ``flat32``;
+  3. neural TO, the bench configuration: bridge 64x32x16, mgl=2,
+     maxed_barrier, 1024/512x4, ``--fine-kernel flat``, and kernels off.
+
+Any failed check exits non-zero. The last line of standard output is one
+JSON object naming the device; the line before it, the card's name and
+power limit; the line before that, the kernels' JSON record.
+
+Imports no JAX and nothing of the JAX package: the machine with the card
+need not have them.
 """
 
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -22,22 +36,49 @@ import shutil
 import statistics
 import subprocess
 import sys
-import tempfile
+import types
 
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")  # gitignored, removed at exit
 GRID = (192, 96, 96)
 MGL = 3
 ITERS = 5
 CG_CAP = 100
 PROB = "problems/3d/cantilever_flexion.json"
-# small shapes of tests/test_pallas.py, then the slice's own
+BRIDGE = "problems/3d/bridge.json"
+BENCH_GRID = (64, 32, 16)
+NEURAL_STEPS = 4
+BENCH_STEPS = 10
+# small shapes of tests/test_pallas.py, then the paths' own fine grids
 TEST_SHAPES = [("problems/2d/mbb_beam.json", (12, 6)),
+               ("problems/2d/mbb_beam.json", (10, 7)),
                ("problems/3d/cantilever_flexion.json", (8, 4, 4)),
-               ("problems/3d/cantilever_flexion.json", (6, 4, 2))]
+               ("problems/3d/cantilever_flexion.json", (6, 4, 2)),
+               (BRIDGE, BENCH_GRID)]
 TOL_F32 = 1e-5      # max|f - f_twin| / max|f_twin|: summation order differs
 TOL_F64 = 1e-12
 TOL_ON_OFF = 1e-4   # the solver's tolerance; both runs are f64-refined to it
+
+# H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
+HBM_BYTES_PER_S = 3.35e12
+# float32 outside the tensor cores; float64 on them (IEEE DMMA, the faster of
+# the card's two FP64 rates: the fine apply is a dense 24x24 GEMM over elements)
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+
+FINE = {  # wrapper -> (source, replaced TPU kernel, dtype)
+    "apply_k_fine_f32": ("ndr_tpu_torch/csrc/apply_k_fine.cu",
+                         "ndr_tpu/fem/pallas_kernels.py:395", torch.float32),
+    "apply_k_fine_elem_f32": ("ndr_tpu_torch/csrc/apply_k_fine_elem.cu",
+                              "ndr_tpu/fem/pallas_kernels.py:238", torch.float32),
+    "apply_k_fine_f64": ("ndr_tpu_torch/csrc/apply_k_fine.cu",
+                         "ndr_tpu/fem/pallas_kernels.py:636", torch.float64),
+    "apply_k_fine_elem_f64": ("ndr_tpu_torch/csrc/apply_k_fine_elem.cu",
+                              "ndr_tpu/fem/pallas_kernels.py:852", torch.float64),
+}
+CACHED = ("apply_k_cached_f32", "ndr_tpu_torch/csrc/apply_k_cached_f32.cu",
+          "ndr_tpu/fem/pallas_kernels.py:1096")
 
 
 def fail(msg: str):
@@ -47,6 +88,18 @@ def fail(msg: str):
 def check(cond: bool, msg: str):
     if not cond:
         fail(msg)
+
+
+def port_modules() -> types.SimpleNamespace:
+    """Every module of the port this script uses (imported here, not at the
+    top, so that the script fails cleanly where the port is missing)."""
+    from ndr_tpu_torch.fem import kernels, multigrid, simulator
+    from ndr_tpu_torch.io import problem
+    from ndr_tpu_torch.training import train_voxelfem, train_xdg
+    from ndr_tpu_torch.utils import torch_setup
+    return types.SimpleNamespace(kernels=kernels, mg=multigrid, simulator=simulator,
+                                 problem=problem, train_voxelfem=train_voxelfem,
+                                 train_xdg=train_xdg, torch_setup=torch_setup)
 
 
 def gpu_line() -> str:
@@ -79,6 +132,58 @@ def errors(out, ref):
     return diff, diff / float(ref.double().abs().max())
 
 
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stencil_csr(grid, block, dtype):
+    """K of a degree-1 grid as a CSR matrix (int32 indices), assembled
+    once from per-element blocks: ``block(a, b)`` is the (dims..., N, N)
+    coupling of local node a's rows to local node b's columns. Each row
+    holds all 3^N neighbour offsets; entries outside the grid are zero."""
+    N = grid.ndim
+    nodes = grid.nodes_per_dim
+    offs = list(itertools.product((-1, 0, 1), repeat=N))
+    local = list(itertools.product((0, 1), repeat=N))
+    dev = block(0, 0).device
+    vals = torch.zeros(nodes + (len(offs), N, N), dtype=dtype, device=dev)
+    for a, ab in enumerate(local):
+        rows = tuple(slice(o, o + n) for o, n in zip(ab, grid.dims))
+        for b, bb in enumerate(local):
+            o = offs.index(tuple(y - x for x, y in zip(ab, bb)))
+            vals[rows + (o,)] += block(a, b).to(dtype)
+    n_nodes = grid.num_nodes
+    strides = [int(math.prod(nodes[k + 1:])) for k in range(N)]
+    idx = torch.arange(n_nodes, device=dev)
+    coords = [(idx // strides[k]) % nodes[k] for k in range(N)]
+    nbr = []
+    for o in offs:
+        ok = torch.ones_like(idx, dtype=torch.bool)
+        flat = torch.zeros_like(idx)
+        for k in range(N):
+            ck = coords[k] + o[k]
+            ok &= (ck >= 0) & (ck < nodes[k])
+            flat += ck.clamp(0, nodes[k] - 1) * strides[k]
+        nbr.append(torch.where(ok, flat, idx))
+    nbr = torch.stack(nbr, 1)                                    # (nodes, 3^N)
+    d = torch.arange(N, device=dev)
+    cols = (nbr[:, None, :, None] * N + d[None, None, None, :]).expand(
+        n_nodes, N, len(offs), N).reshape(n_nodes * N, -1).to(torch.int32)
+    v = vals.reshape(n_nodes, len(offs), N, N).permute(0, 2, 1, 3).reshape(
+        n_nodes * N, -1).contiguous()
+    del vals
+    per_row = v.shape[1]
+    crow = torch.arange(0, n_nodes * N * per_row + 1, per_row, dtype=torch.int32,
+                        device=dev)
+    K = torch.sparse_csr_tensor(crow, cols.reshape(-1).contiguous(), v.reshape(-1),
+                                size=(n_nodes * N, n_nodes * N),
+                                check_invariants=False)
+    return K
+
+
 def phase_environment():
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -90,32 +195,26 @@ def phase_environment():
     print("gpu:", gpu_line())
 
 
-def phase_build():
-    from ndr_tpu_torch.fem import kernels
-
-    seconds = kernels.build()
-    print(f"build: {seconds:.2f} s -> {kernels.build_info['path']}")
-    for line in str(kernels.build_info["log"]).splitlines():
+def phase_build(m):
+    seconds = m.kernels.build()
+    print(f"build: {seconds:.2f} s -> {m.kernels.build_info['path']}")
+    for line in str(m.kernels.build_info["log"]).splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
 
-def phase_kernels():
-    """Each kernel against its twin at the test shapes and at the slice's
-    shapes; returns the JSON records for the slice shapes."""
+def phase_kernels(m):
+    """Each kernel against its twin at the test shapes and the paths'
+    shapes; at 192x96x96 (cached: its levels 1 and 2) each is timed beside
+    its twin and the CSR SpMV. Returns (worst abs error, records)."""
     import numpy as np
 
-    from ndr_tpu.io.problem import load_problem
-    from ndr_tpu_torch.fem import kernels
-    from ndr_tpu_torch.fem import multigrid as mg
-    from ndr_tpu_torch.fem.simulator import problem_from_config
-
+    kernels = m.kernels
     dev = torch.device("cuda")
-    worst = {"apply_k_fine_f32": 0.0, "apply_k_fine_f64": 0.0,
-             "apply_k_cached_f32": 0.0}
+    worst = {name: 0.0 for name in kernels.launches}
     records = {}
 
-    def run(name, kernel, plain, args, grid, tol, nbytes, label, timed):
+    def run(name, kernel, plain, args, grid, tol, label, cost=None, library=None):
         out = kernel(*args, grid)
         torch.cuda.synchronize()
         ref = plain(*args, grid)
@@ -123,53 +222,81 @@ def phase_kernels():
         check(math.isfinite(rel_err) and rel_err < tol,
               f"{name} at {label}: rel err {rel_err:.3e} >= {tol:g}")
         worst[name] = max(worst[name], abs_err)
-        line = f"{name:20s} {label:28s} max|d| {abs_err:.3e}  rel {rel_err:.3e}"
-        if timed:
+        line = f"{name:22s} {label:30s} max|d| {abs_err:.3e}  rel {rel_err:.3e}"
+        if cost is not None:
+            nbytes, flops, dtype = cost
             ms = time_ms(lambda: kernel(*args, grid))
             plain_ms = time_ms(lambda: plain(*args, grid))
-            gbs = nbytes / (ms * 1e-3) / 1e9
-            line += f"  kernel {ms:.4f} ms ({gbs:.1f} GB/s)  plain {plain_ms:.4f} ms"
-            records.setdefault(name, []).append(
-                dict(shape=label, ms=ms, plain_ms=plain_ms, gbs=gbs))
-        print(line)
+            lib_ms = None
+            if library is not None:
+                K, vec = library()
+                lib_err = errors(K @ vec, ref.reshape(-1))[1]
+                check(lib_err < tol, f"{name} library SpMV at {label}: rel {lib_err:.3e}")
+                lib_ms = time_ms(lambda: K @ vec)
+                del K, vec
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            line += (f"\n    kernel {ms:.4f} ms, {nbytes / 1e6:.1f} MB "
+                     f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s), {flops / 1e9:.2f} GFLOP; "
+                     f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%} of it); "
+                     f"plain {plain_ms:.4f} ms; library "
+                     + ("-" if lib_ms is None else f"{lib_ms:.4f} ms"))
+            records.setdefault(name, []).append(dict(
+                shape=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops))
+        print(line, flush=True)
 
     rng = np.random.default_rng(0)
     for prob_path, dims in TEST_SHAPES + [(PROB, GRID)]:
         timed = dims == GRID
-        prob, grid = problem_from_config(load_problem(prob_path), dims=dims,
-                                         device=dev)
+        prob, grid = m.simulator.problem_from_config(
+            m.problem.load_problem(prob_path), dims=dims, device=dev)
         rho = torch.tensor(rng.uniform(1e-3, 1.0, grid.dims), device=dev)
         u = torch.tensor(1e3 * rng.standard_normal(grid.nodes_per_dim + (grid.ndim,)),
                          device=dev)
         young = prob.young(rho)
         nn, ne, N = grid.num_nodes, grid.num_elements, grid.ndim
-        args32 = (u.float(), young.float(), prob.K0.float())
-        run("apply_k_fine_f32", kernels.apply_k_fine_f32,
-            kernels.apply_k_fine_plain, args32, grid, TOL_F32,
-            8 * N * nn + 4 * ne, f"fine {dims}", timed)
-        run("apply_k_fine_f64", kernels.apply_k_fine_f64,
-            kernels.apply_k_fine_plain, (u, young, prob.K0), grid, TOL_F64,
-            16 * N * nn + 8 * ne, f"fine {dims}", timed)
+        d = grid.nodes_per_elem * N
+        for name, (_, _, dt) in FINE.items():
+            b = torch.finfo(dt).bits // 8
+            args = (u.to(dt), young.to(dt), prob.K0.to(dt))
+            tol = TOL_F32 if dt == torch.float32 else TOL_F64
+
+            def library(args=args, grid=grid):
+                ke = args[2]
+                K = stencil_csr(grid, lambda a, c: args[1][..., None, None]
+                                * ke[a * N:(a + 1) * N, c * N:(c + 1) * N], args[0].dtype)
+                return K, args[0].reshape(-1)
+
+            run(name, getattr(kernels, name), kernels.apply_k_fine_plain, args, grid,
+                tol, f"fine {dims}",
+                cost=(2 * N * nn * b + ne * b, ne * (2 * d * d + d), dt) if timed else None,
+                library=library if timed else None)
 
         # cached: the Galerkin levels of this grid's hierarchy, built as
         # the solver builds them (level 1 direct, deeper levels recursive)
-        nl = MGL if timed else 1
-        cfg = mg.build_mg_config(prob, nl)
-        ke = mg.build_level_ke(cfg, young.float(), 1)
+        nl = MGL if timed else min(1, m.mg.max_feasible_coarsenings(grid))
+        cfg = m.mg.build_mg_config(prob, nl)
+        ke = m.mg.build_level_ke(cfg, young.float(), 1) if nl else None
         for l in range(1, nl + 1):
             if l > 1:
-                ke = mg.coarsen_ke(ke, N)
+                ke = m.mg.coarsen_ke(ke, N)
             if l == nl and timed:
                 break  # the coarsest level is factored, not applied
             g = cfg.levels[l].grid
             stream = kernels.ke_stream_layout(ke, g)
             ul = torch.tensor(rng.standard_normal(g.nodes_per_dim + (N,)),
                               dtype=torch.float32, device=dev)
-            d = g.nodes_per_elem * N
-            run("apply_k_cached_f32", kernels.apply_k_cached_f32,
-                kernels.apply_k_cached_f32_plain, (ul, stream), g, TOL_F32,
-                4 * d * d * g.num_elements + 8 * N * g.num_nodes,
-                f"level {l} {g.dims}", timed)
+
+            def library(ke=ke, g=g, ul=ul):
+                K = stencil_csr(g, lambda a, c: ke[..., a * N:(a + 1) * N,
+                                                   c * N:(c + 1) * N], torch.float32)
+                return K, ul.reshape(-1)
+
+            run(CACHED[0], kernels.apply_k_cached_f32, kernels.apply_k_cached_f32_plain,
+                (ul, stream), g, TOL_F32, f"level {l} {g.dims}",
+                cost=(4 * d * d * g.num_elements + 8 * N * g.num_nodes,
+                      2 * d * d * g.num_elements, torch.float32) if timed else None,
+                library=library if timed else None)
             del stream
         del ke
         torch.cuda.empty_cache()
@@ -190,100 +317,184 @@ class _Tee(io.TextIOBase):
             st.flush()
 
 
-STEP_RE = re.compile(r"Total Steps: (\d+), Runtime: \S+, Compliance loss (\S+), "
-                     r"constraint \S+, lambda \S+, cg_iters (\d+)")
-
-
-def run_slice(kernels_mode: str, out_dir: str):
-    from ndr_tpu_torch.training import train_voxelfem
-
+@contextlib.contextmanager
+def captured_stderr():
     buf = io.StringIO()
+    with contextlib.redirect_stderr(_Tee(sys.stderr, buf)):
+        yield buf
+
+
+CLASSIC_RE = re.compile(r"Total Steps: (\d+), Runtime: \S+, Compliance loss (\S+), "
+                        r"constraint \S+, lambda \S+, cg_iters (\d+)")
+NEURAL_RE = re.compile(r"Total Steps: (\d+), Compliance loss (\S+), loss (\S+), "
+                       r"cg_iters (\d+)")
+
+
+def run_path(m, label: str, fn, expect: tuple):
+    """Drive one path with the launch counters zeroed just before and read
+    just after; every kernel in ``expect`` must have launched."""
+    m.kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    result = fn()
+    torch.cuda.synchronize()
+    counts = dict(m.kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{label}] launches {counts}, peak memory {peak:.2f} GiB")
+    for name in expect:
+        check(counts[name] > 0, f"{label}: {name} was not launched by the path")
+    return result, counts, peak
+
+
+def classic(m, kernels_mode: str):
     argv = ["--prob", PROB, "--grid", json.dumps(list(GRID)), "--mgl", str(MGL),
             "--iter", str(ITERS), "--device", "cuda", "--kernels", kernels_mode,
-            "--out", out_dir, "--jid", f"smoke_{kernels_mode}"]
-    torch.cuda.reset_peak_memory_stats()
-    with contextlib.redirect_stderr(_Tee(sys.stderr, buf)):
-        result = train_voxelfem.main(argv)
-    torch.cuda.synchronize()
+            "--out", OUT_DIR, "--jid", f"classic_{kernels_mode}"]
+    with captured_stderr() as buf:
+        result = m.train_voxelfem.main(argv)
     text = buf.getvalue()
-    steps = [(int(i), float(c), int(n)) for i, c, n in STEP_RE.findall(text)]
+    steps = [(int(i), float(c), int(n)) for i, c, n in CLASSIC_RE.findall(text)]
     check([s[0] for s in steps] == list(range(ITERS)),
-          f"kernels {kernels_mode}: step lines {steps}")
+          f"classic kernels {kernels_mode}: step lines {steps}")
     for i, c, n in steps:
-        check(math.isfinite(c) and c > 0, f"step {i}: compliance {c}")
-        check(n < CG_CAP, f"step {i}: cg_iters {n} hit the cap {CG_CAP}")
+        check(math.isfinite(c) and c > 0, f"classic step {i}: compliance {c}")
+        check(n < CG_CAP, f"classic step {i}: cg_iters {n} hit the cap {CG_CAP}")
     check('Compliance loss of binary densities for "' in text
           and "Final step, Compliance loss" in text,
-          f"kernels {kernels_mode}: final reference-format lines missing")
+          f"classic kernels {kernels_mode}: final reference-format lines missing")
     check(math.isfinite(result.compliance) and math.isfinite(result.binary_compliance),
-          "final compliance not finite")
+          "classic final compliance not finite")
     check(result.densities.shape == GRID, f"densities shape {result.densities.shape}")
-    for f in (f"smoke_{kernels_mode}.vtr", f"smoke_{kernels_mode}_densities.npy",
-              f"smoke_{kernels_mode}_history.json"):
-        check(os.path.exists(os.path.join(out_dir, f)), f"artifact {f} missing")
+    for f in (".vtr", "_densities.npy", "_history.json"):
+        path = os.path.join(OUT_DIR, f"classic_{kernels_mode}{f}")
+        check(os.path.exists(path), f"artifact {path} missing")
     s_per_iter = statistics.median(result.step_seconds[1:5])
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"kernels {kernels_mode}: compliance by step "
+    print(f"classic kernels {kernels_mode}: compliance by step "
           f"{[c for _, c, _ in steps]}, cg_iters {[n for *_, n in steps]}, "
-          f"s/OC-iter (median of steps 1-4) {s_per_iter:.4f}, "
-          f"peak memory {peak:.2f} GiB")
-    return steps, s_per_iter, peak
+          f"s/OC-iter (median of steps 1-4) {s_per_iter:.4f}")
+    return steps, s_per_iter
+
+
+def neural(m, jid: str, grid, mgl: int, vcs: str, steps: int, extra):
+    argv = ["--prob", BRIDGE, "--grid", json.dumps(list(grid)), "--v0", "0.4",
+            "--mgl", str(mgl), "--vcs", vcs, "--es", "1024", "--nn", "512",
+            "--nl", "4", "--iter", str(steps), "--log-every", "1",
+            "--device", "cuda", "--out", OUT_DIR, "--jid", jid] + list(extra)
+    with captured_stderr() as buf:
+        result = m.train_xdg.main(argv)
+    text = buf.getvalue()
+    lines = [(int(i), float(c), float(l), int(n))
+             for i, c, l, n in NEURAL_RE.findall(text)]
+    check([s[0] for s in lines] == list(range(1, steps + 1)),
+          f"{jid}: step lines {lines}")
+    for i, c, l, n in lines:
+        check(math.isfinite(c) and c > 0 and math.isfinite(l),
+              f"{jid} step {i}: compliance {c}, loss {l}")
+        check(n < CG_CAP, f"{jid} step {i}: cg_iters {n} hit the cap {CG_CAP}")
+    check("Resolution runtime: " in text and "Final compliance " in text
+          and "b-vol=" in text, f"{jid}: final lines missing")
+    check(math.isfinite(result.final_compliance)
+          and math.isfinite(result.binary_compliance), f"{jid}: final compliance")
+    check(result.densities.shape == tuple(grid)
+          and bool(torch.isfinite(torch.as_tensor(result.densities)).all()),
+          f"{jid}: densities {result.densities.shape}")
+    for f in (".vtr", "_densities.npy", ".npz", "_history.json"):
+        path = os.path.join(OUT_DIR, f"{jid}{f}")
+        check(os.path.exists(path), f"artifact {path} missing")
+    s_step = statistics.median(result.step_seconds[1:]) if steps > 1 else float("nan")
+    print(f"{jid}: compliance by step {[c for _, c, _, _ in lines]}, "
+          f"cg_iters {[n for *_, n in lines]}, s/step (median of steps after "
+          f"step 0) {s_step:.4f}, final {result.final_compliance:.6f}, "
+          f"binary {result.binary_compliance:.6f}")
+    return lines, s_step
+
+
+def agree(label: str, a: float, b: float):
+    rel = abs(a - b) / abs(b)
+    print(f"{label}: {a} vs {b}, rel {rel:.3e}")
+    check(rel < TOL_ON_OFF, f"{label} differ: rel {rel:.3e}")
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False: "
                          "this smoke needs an NVIDIA card")
-    from ndr_tpu_torch.fem import kernels
-    from ndr_tpu_torch.utils.torch_setup import setup
-
-    setup()
+    m = port_modules()
+    m.torch_setup.setup()
     print("== 1. environment")
     phase_environment()
     print("== 2. build")
-    phase_build()
-    print("== 3. kernels against their twins")
-    worst, records = phase_kernels()
+    phase_build(m)
+    print("== 3. kernels against their twins; times at 192x96x96")
+    worst, records = phase_kernels(m)
 
-    out_dir = tempfile.mkdtemp(prefix="ndr_chip_smoke_")
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    os.makedirs(OUT_DIR)
+    total = {name: 0 for name in m.kernels.launches}
+    timings = []
     try:
-        print(f"== 4. slice: {PROB} {GRID} mgl={MGL}, {ITERS} OC steps, kernels on")
-        kernels.reset_launches()
-        steps_on, t_on, peak_on = run_slice("on", out_dir)
-        launches = dict(kernels.launches)
-        print("launches:", launches)
-        for name, n in launches.items():
-            check(n > 0, f"{name} was not launched by the main path")
+        print(f"== 4. classic: {PROB} {GRID} mgl={MGL}, {ITERS} OC steps")
+        (steps_on, t_on), counts, peak = run_path(
+            m, "classic on", lambda: classic(m, "on"),
+            ("apply_k_fine_f32", "apply_k_cached_f32", "apply_k_fine_f64"))
+        total = {k: total[k] + counts[k] for k in total}
+        (steps_off, t_off), _, peak_off = run_path(
+            m, "classic off", lambda: classic(m, "off"), ())
+        agree("classic step-0 compliance on/off", steps_on[0][1], steps_off[0][1])
+        timings.append(f"classic {GRID} mgl={MGL}: s/OC-iter on {t_on:.4f} "
+                       f"(peak {peak:.2f} GiB), off {t_off:.4f} (peak {peak_off:.2f} GiB)")
 
-        print("== 5. kernels off (plain torch on the same card)")
-        steps_off, t_off, peak_off = run_slice("off", out_dir)
-        c_on, c_off = steps_on[0][1], steps_off[0][1]
-        rel = abs(c_on - c_off) / abs(c_off)
-        print(f"step-0 compliance on {c_on} off {c_off} rel {rel:.3e}")
-        check(rel < TOL_ON_OFF, f"kernels on/off step-0 compliance differ {rel:.3e}")
+        print(f"== 5. neural north star: {BRIDGE} {GRID} mgl=3 "
+              f"constrained_sigmoid 1024/512x4, {NEURAL_STEPS} steps")
+        star = {}
+        for fk, fine32, fine64 in (("variant", "apply_k_fine_elem_f32", "apply_k_fine_f64"),
+                                   ("flat32", "apply_k_fine_f32", "apply_k_fine_f64")):
+            (lines, s_step), counts, peak = run_path(
+                m, f"neural {fk}",
+                lambda fk=fk: neural(m, f"star_{fk}", GRID, 3, "constrained_sigmoid",
+                                     NEURAL_STEPS, ["--fine-kernel", fk]),
+                (fine32, "apply_k_cached_f32", fine64))
+            total = {k: total[k] + counts[k] for k in total}
+            star[fk] = lines
+            timings.append(f"neural {GRID} mgl=3 fine-kernel {fk}: s/step {s_step:.4f}, "
+                           f"peak {peak:.2f} GiB")
+        agree("neural step-0 compliance variant/flat32",
+              star["variant"][0][1], star["flat32"][0][1])
+
+        print(f"== 6. neural bench config: {BRIDGE} {BENCH_GRID} mgl=2 "
+              f"maxed_barrier 1024/512x4")
+        (lines_on, s_on), counts, peak = run_path(
+            m, "bench flat",
+            lambda: neural(m, "bench_flat", BENCH_GRID, 2, "maxed_barrier",
+                           BENCH_STEPS, ["--fine-kernel", "flat"]),
+            ("apply_k_fine_f32", "apply_k_cached_f32", "apply_k_fine_elem_f64"))
+        total = {k: total[k] + counts[k] for k in total}
+        (lines_off, s_off), _, peak_off = run_path(
+            m, "bench off",
+            lambda: neural(m, "bench_off", BENCH_GRID, 2, "maxed_barrier", 2,
+                           ["--kernels", "off"]), ())
+        agree("bench step-0 compliance flat/off", lines_on[0][1], lines_off[0][1])
+        timings.append(f"neural {BENCH_GRID} mgl=2 fine-kernel flat: s/step {s_on:.4f} "
+                       f"(peak {peak:.2f} GiB); kernels off: s/step {s_off:.4f} "
+                       f"(peak {peak_off:.2f} GiB)")
     finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    print("== 6. timings")
-    print(f"s/OC-iter at {GRID} mgl={MGL}: kernels on {t_on:.4f}, "
-          f"off {t_off:.4f} (median of steps 1-4)")
-    for name, recs in records.items():
-        for r in recs:
-            print(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms "
-                  f"({r['gbs']:.1f} GB/s), plain {r['plain_ms']:.4f} ms")
-
-    sources = {"apply_k_fine_f32": ("ndr_tpu_torch/csrc/apply_k_fine.cu",
-                                    "ndr_tpu/fem/pallas_kernels.py:395"),
-               "apply_k_cached_f32": ("ndr_tpu_torch/csrc/apply_k_cached_f32.cu",
-                                      "ndr_tpu/fem/pallas_kernels.py:1096"),
-               "apply_k_fine_f64": ("ndr_tpu_torch/csrc/apply_k_fine.cu",
-                                    "ndr_tpu/fem/pallas_kernels.py:636")}
+    print("== 7. summary")
+    print("launches over the paths:", total)
+    for name, n in total.items():
+        check(n > 0, f"{name} was launched by no path")
+    for line in timings:
+        print(line)
     out = []
-    for name, (src, rep) in sources.items():
+    for name in ("apply_k_fine_f32", "apply_k_fine_elem_f32", "apply_k_cached_f32",
+                 "apply_k_fine_f64", "apply_k_fine_elem_f64"):
+        src, rep = (CACHED[1], CACHED[2]) if name == CACHED[0] else FINE[name][:2]
         r = records[name][0]  # fine: 192x96x96; cached: level 1
         out.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                    "launches": launches[name], "max_abs_err": worst[name],
-                    "ms": r["ms"], "plain_ms": r["plain_ms"]})
+                    "launches": total[name], "max_abs_err": worst[name],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": out}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,24 @@
 """Hand-written CUDA stiffness kernels, their wrappers and plain twins
 (counterpart of ``ndr_tpu/fem/pallas_kernels.py``).
 
-Three kernels carry the classic SIMP-OC path; their sources are in
-``ndr_tpu_torch/csrc/`` (the two fine applies are one templated kernel
-in ``apply_k_fine.cu``):
+Five kernels, one for each Pallas kernel; their sources are in
+``ndr_tpu_torch/csrc/``. The node-centric fine applies are one templated
+kernel in ``apply_k_fine.cu``, the element-centric ones another in
+``apply_k_fine_elem.cu``:
 
-====================  ===========================  ==========================
-wrapper               replaces (pallas_kernels.py)  plain twin
-====================  ===========================  ==========================
-apply_k_fine_f32      apply_k_pallas_flat           apply_k_fine_plain (f32)
-apply_k_cached_f32    apply_k_pallas_cached         apply_k_cached_f32_plain
-                                                    on the stream layout
-apply_k_fine_f64      apply_k_pallas_df             apply_k_fine_plain (f64)
-====================  ===========================  ==========================
+=====================  ===========================  =========================
+wrapper                replaces (pallas_kernels.py)  plain twin
+=====================  ===========================  =========================
+apply_k_fine_f32       apply_k_pallas_flat           apply_k_fine_plain (f32)
+apply_k_fine_elem_f32  apply_k_pallas                apply_k_fine_plain (f32)
+apply_k_cached_f32     apply_k_pallas_cached         apply_k_cached_f32_plain
+                                                     on the stream layout
+apply_k_fine_f64       apply_k_pallas_df             apply_k_fine_plain (f64)
+apply_k_fine_elem_f64  apply_k_pallas_df_flat        apply_k_fine_plain (f64)
+=====================  ===========================  =========================
+
+Which fine kernels the solver runs is its ``fine_kernel`` setting
+(:func:`fine_kernels`), the JAX package's fine-kernel switch.
 
 A wrapper takes its twin only for tensors on the CPU. For a CUDA tensor
 it launches its kernel or raises: there is no fallback. Each launch adds
@@ -33,24 +39,26 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ndr_tpu.grid import Grid
+from ndr_tpu_torch.grid import Grid
 from ndr_tpu_torch.fem import operators as ops
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ndr_tpu_torch"
-_SOURCES = ("apply_k_fine.cu", "apply_k_cached_f32.cu")
+_SOURCES = ("apply_k_fine.cu", "apply_k_fine_elem.cu", "apply_k_cached_f32.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches: Dict[str, int] = {
     "apply_k_fine_f32": 0,
+    "apply_k_fine_elem_f32": 0,
     "apply_k_cached_f32": 0,
     "apply_k_fine_f64": 0,
+    "apply_k_fine_elem_f64": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -102,6 +110,10 @@ def build() -> float:
     lib.ndr_apply_k_fine_f32.restype = i32
     lib.ndr_apply_k_fine_f64.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.ndr_apply_k_fine_f64.restype = i32
+    for name in ("ndr_apply_k_fine_elem_f32", "ndr_apply_k_fine_elem_f64"):
+        getattr(lib, name).argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                       i32, i32, ptr]
+        getattr(lib, name).restype = i32
     lib.ndr_apply_k_cached_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.ndr_apply_k_cached_f32.restype = i32
     lib.ndr_error_string.argtypes = [i32]
@@ -163,19 +175,24 @@ def _stream(device: torch.device) -> int:
 # ---------------------------------------------------------------------------
 
 def apply_k_fine_plain(u, young, K0, grid: Grid) -> torch.Tensor:
-    """Plain twin of :func:`apply_k_fine_f32` and :func:`apply_k_fine_f64`."""
+    """Plain twin of the four fine-level wrappers (fp32 and f64,
+    node- and element-centric)."""
     return ops.apply_k(u, young, K0, grid)
+
+
+def _check_fine(u, young, K0, grid: Grid, dtype: torch.dtype) -> None:
+    _check_grid(grid)
+    d_pe = grid.nodes_per_elem * grid.ndim
+    _check("u", u, dtype, grid.nodes_per_dim + (grid.ndim,), u.device)
+    _check("young", young, dtype, grid.dims, u.device)
+    _check("K0", K0, dtype, (d_pe, d_pe), u.device)
 
 
 def _apply_fine(u, young, K0, grid: Grid, dtype: torch.dtype,
                 name: str) -> torch.Tensor:
     if not _on_cuda(u):
         return apply_k_fine_plain(u, young, K0, grid)
-    _check_grid(grid)
-    d_pe = grid.nodes_per_elem * grid.ndim
-    _check("u", u, dtype, grid.nodes_per_dim + (grid.ndim,), u.device)
-    _check("young", young, dtype, grid.dims, u.device)
-    _check("K0", K0, dtype, (d_pe, d_pe), u.device)
+    _check_fine(u, young, K0, grid, dtype)
     entry = getattr(_library(), f"ndr_{name}")
     f = torch.empty_like(u)
     with torch.cuda.device(u.device):
@@ -197,6 +214,81 @@ def apply_k_fine_f64(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
     """f = K(E) u in float64 on a degree-1 grid; K0 is (d_pe, d_pe) f64.
     The refinement loop's true residual."""
     return _apply_fine(u, young, K0, grid, torch.float64, "apply_k_fine_f64")
+
+
+# ---------------------------------------------------------------------------
+# Element-centric fine-level apply, fp32 (replaces pallas_kernels.apply_k_pallas)
+# and float64 (replaces pallas_kernels.apply_k_pallas_df_flat)
+# ---------------------------------------------------------------------------
+
+#: x-elements per slab of the element-centric kernels (one thread walks a
+#: slab of one trailing element column), the TPU kernel's default slab.
+ELEM_SLAB = 8
+
+
+def elem_partials_shape(grid: Grid, slab: int = ELEM_SLAB):
+    """Shape of the element-centric kernels' scratch: one partial force
+    field per (x-slab, slab node plane, trailing node offset, component),
+    over the trailing element dims."""
+    nslabs = -(-grid.dims[0] // slab)
+    return (nslabs, slab + 1, 1 << (grid.ndim - 1), grid.ndim) + tuple(grid.dims[1:])
+
+
+def _apply_fine_elem(u, young, K0, grid: Grid, dtype: torch.dtype,
+                     name: str) -> torch.Tensor:
+    if not _on_cuda(u):
+        return apply_k_fine_plain(u, young, K0, grid)
+    _check_fine(u, young, K0, grid, dtype)
+    entry = getattr(_library(), f"ndr_{name}")
+    part = torch.empty(elem_partials_shape(grid), dtype=dtype, device=u.device)
+    f = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        code = entry(u.data_ptr(), young.data_ptr(), K0.data_ptr(),
+                     part.data_ptr(), f.data_ptr(), grid.ndim, *_dims3(grid),
+                     ELEM_SLAB, _stream(u.device))
+    _check_launch(code, name)
+    launches[name] += 1
+    return f
+
+
+def apply_k_fine_elem_f32(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
+                          grid: Grid) -> torch.Tensor:
+    """f = K(E) u in fp32 on a degree-1 grid, element-centric: each
+    element's contraction once, summed through per-offset partials."""
+    return _apply_fine_elem(u, young, K0, grid, torch.float32,
+                            "apply_k_fine_elem_f32")
+
+
+def apply_k_fine_elem_f64(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
+                          grid: Grid) -> torch.Tensor:
+    """As :func:`apply_k_fine_elem_f32` in float64 (the refinement's true
+    residual under ``fine_kernel="flat"``)."""
+    return _apply_fine_elem(u, young, K0, grid, torch.float64,
+                            "apply_k_fine_elem_f64")
+
+
+#: The solver's ``fine_kernel`` settings: the JAX package's fine-kernel
+#: switch (``pallas_kernels.apply_k_pallas_fine`` / ``_df_fine``).
+FINE_KERNELS = ("flat32", "variant", "flat")
+
+
+def fine_kernels(fine_kernel: str) -> Tuple[Callable, Callable]:
+    """(fp32 fine apply, float64 residual apply) of a ``fine_kernel``
+    setting, with the JAX package's dispatch:
+
+    ==========  ======================  ======================
+    setting     fp32 fine apply         float64 residual
+    ==========  ======================  ======================
+    flat32      apply_k_fine_f32        apply_k_fine_f64
+    variant     apply_k_fine_elem_f32   apply_k_fine_f64
+    flat        apply_k_fine_f32        apply_k_fine_elem_f64
+    ==========  ======================  ======================
+    """
+    if fine_kernel not in FINE_KERNELS:
+        raise ValueError(f"fine_kernel={fine_kernel!r}: one of {FINE_KERNELS}")
+    f32 = apply_k_fine_elem_f32 if fine_kernel == "variant" else apply_k_fine_f32
+    f64 = apply_k_fine_elem_f64 if fine_kernel == "flat" else apply_k_fine_f64
+    return f32, f64
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,12 @@ Chebyshev smoothing on D^-1 K with the guaranteed pencil bound for
 lambda_max, FMG/V-cycle preconditioning, a Newton–Schulz or Cholesky
 coarsest solve, and float64 iterative refinement around fp32 MGPCG.
 
-On CUDA with kernels on, the fine level applies K through
-:func:`kernels.apply_k_fine_f32`, every non-coarsest cached level through
+On CUDA with kernels on, the fine level applies K through the fp32 fine
+kernel, every non-coarsest cached level through
 :func:`kernels.apply_k_cached_f32` on the stream layout, and the
-refinement's true residual through :func:`kernels.apply_k_fine_f64`.
+refinement's true residual through the float64 fine kernel. Which fine
+kernels (node- or element-centric) is the ``fine_kernel`` setting, with
+the JAX package's dispatch (:func:`kernels.fine_kernels`).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): the multicolor Gauss-Seidel smoother, the "transfer" level kind
@@ -23,12 +25,12 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ndr_tpu.grid import Grid
+from ndr_tpu_torch.grid import Grid
 from ndr_tpu_torch.fem import kernels
 from ndr_tpu_torch.fem import operators as ops
 from ndr_tpu_torch.fem import solvers
@@ -339,15 +341,18 @@ class LevelState:
     K0: Optional[torch.Tensor]          # level 0 only, in young's dtype
     Dinv: Optional[torch.Tensor] = None
     lmax: Optional[float] = None
-    use_kernels: bool = False           # level 0: CUDA fine apply
     kind: str = "cached"
     Ke_stream: Optional[torch.Tensor] = None
+    # level 0 with kernels: the fp32 apply and the float64 residual's apply
+    # that the ``fine_kernel`` setting names (kernels.fine_kernels)
+    fine_apply: Optional[Callable] = None
+    fine_apply64: Optional[Callable] = None
 
 
 def _apply_k_level(lv: LevelState, u: torch.Tensor) -> torch.Tensor:
     if lv.kind == "fine":
-        if lv.use_kernels:
-            return kernels.apply_k_fine_f32(u, lv.young, lv.K0, lv.grid)
+        if lv.fine_apply is not None:
+            return lv.fine_apply(u, lv.young, lv.K0, lv.grid)
         return ops.apply_k(u, lv.young, lv.K0, lv.grid)
     if lv.Ke_stream is not None:
         return kernels.apply_k_cached_f32(u, lv.Ke_stream, lv.grid)
@@ -361,16 +366,19 @@ def _zero_dirichlet(lv: LevelState, u: torch.Tensor) -> torch.Tensor:
 def build_level_states(
     cfg: MGConfig, prob: FEMProblem, young: torch.Tensor,
     smoother: str = "chebyshev", use_kernels: bool = False,
+    fine_kernel: str = "flat32",
 ) -> List[LevelState]:
     """The hierarchy's operators for one modulus field.
 
-    ``use_kernels`` routes the fine level and every non-coarsest cached
-    level through the CUDA kernels, which take fp32 degree-1 hierarchies.
+    ``use_kernels`` routes the fine level (through the fp32 kernel that
+    ``fine_kernel`` names) and every non-coarsest cached level through the
+    CUDA kernels, which take fp32 degree-1 hierarchies.
     On CUDA tensors any other hierarchy raises rather than run the plain
     ops on the card; on CPU tensors the plain ops serve it (the wrappers
     run their plain twins there anyway)."""
     if smoother != "chebyshev":
         raise NotImplementedError(f"smoother={smoother!r}: {_TODO_GS}")
+    apply32, apply64 = kernels.fine_kernels(fine_kernel)
     degree = cfg.levels[0].grid.degree
     if use_kernels and young.device.type == "cuda":
         if young.dtype != torch.float32:
@@ -411,9 +419,10 @@ def build_level_states(
                 Ke=Ke,
                 Minv_rows=M,
                 K0=prob.K0.to(young.dtype) if l == 0 else None,
-                use_kernels=use_kernels and l == 0,
                 kind=kind,
                 Ke_stream=Ke_stream,
+                fine_apply=apply32 if use_kernels and l == 0 else None,
+                fine_apply64=apply64 if use_kernels and l == 0 else None,
             )
         )
     for l, lv in enumerate(states):
@@ -615,6 +624,10 @@ class MGSolverSettings:
     # coarsest solve: "cholesky", "ns" or "auto" (ns for fp32
     # hierarchies up to NS_AUTO_MAX_DOFS, else cholesky)
     coarse_solver: str = "auto"
+    # fine-level kernels with use_kernels: "flat32" (node-centric fp32 and
+    # f64), "variant" (element-centric fp32) or "flat" (element-centric
+    # f64 residual); the JAX package's NDR_FINE_KERNEL switch
+    fine_kernel: str = "flat32"
 
 
 # "auto" coarse-solver size gate (Newton–Schulz costs ~30 dense n^3
@@ -681,7 +694,8 @@ def mgpcg_solve(
     young = prob.young(rho)
     levels = build_level_states(
         cfg, prob, young, smoother=settings.smoother,
-        use_kernels=resolve_use_kernels(settings.use_kernels, prob.device))
+        use_kernels=resolve_use_kernels(settings.use_kernels, prob.device),
+        fine_kernel=settings.fine_kernel)
     lv0 = levels[0]
 
     def apply_a(u):
@@ -711,21 +725,22 @@ def _mgpcg_solve_refined(
     correction system, targeting the final tolerance directly, with a
     second pass only when the needed reduction exceeds what one fp32
     solve can deliver (cold starts). With kernels on, the float64
-    residual is :func:`kernels.apply_k_fine_f64` at every tol.
+    residual is the float64 fine kernel of ``settings.fine_kernel`` at
+    every tol.
     """
     f32, f64 = torch.float32, torch.float64
     young32 = prob.young(rho).to(f32)
-    use_kernels = resolve_use_kernels(settings.use_kernels, prob.device)
     levels = build_level_states(
         cfg, prob, young32, smoother=settings.smoother,
-        use_kernels=use_kernels)
+        use_kernels=resolve_use_kernels(settings.use_kernels, prob.device),
+        fine_kernel=settings.fine_kernel)
     lv0 = levels[0]
 
     K0_64 = prob.K0.to(f64)
     young64 = ops.element_young_modulus(
         rho.to(f64), prob.E0, prob.Emin, prob.gamma)
     force64 = prob.force.to(f64)
-    apply64 = kernels.apply_k_fine_f64 if use_kernels else ops.apply_k
+    apply64 = lv0.fine_apply64 or ops.apply_k
 
     def residual64(u):
         return _zero_dirichlet(lv0, force64 - apply64(u, young64, K0_64, lv0.grid))

@@ -21,7 +21,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from ndr_tpu.grid import Grid
+from ndr_tpu_torch.grid import Grid
 
 
 def local_node_offsets(grid: Grid) -> np.ndarray:

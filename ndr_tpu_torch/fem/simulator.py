@@ -9,9 +9,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ndr_tpu.fem import element as el
-from ndr_tpu.grid import Grid
-from ndr_tpu.io.problem import BoundaryConditions, ProblemConfig, load_bcs, load_material
+from ndr_tpu_torch.fem import element as el
+from ndr_tpu_torch.grid import Grid
+from ndr_tpu_torch.io.problem import BoundaryConditions, ProblemConfig, load_bcs, load_material
 from ndr_tpu_torch.fem import operators as ops
 
 
@@ -83,7 +83,7 @@ def build_problem(
     Emin: float = 1e-4,
     gamma: float = 3.0,
     dtype: torch.dtype = torch.float64,
-    device="cpu",
+    device="cuda",
 ) -> FEMProblem:
     """Assemble a FEMProblem from geometry, material, and nodal BCs.
     ``dtype`` is the force field's (working) dtype; K0 stays float64."""
@@ -96,9 +96,10 @@ def build_problem(
 
 def problem_from_config(
     cfg: ProblemConfig, dims=None, dtype: torch.dtype = torch.float64,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[FEMProblem, Grid]:
-    """Build a FEMProblem from a problem-JSON config."""
+    """Build a FEMProblem from a problem-JSON config on ``device`` (the
+    card unless the caller asks for the CPU)."""
     grid = cfg.make_grid(dims)
     material = load_material(cfg.material_path, grid.ndim)
     bcs = load_bcs(cfg.bc_path, grid)

@@ -11,7 +11,7 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ndr_tpu.grid import Grid
+from ndr_tpu_torch.grid import Grid
 from ndr_tpu_torch.fem import operators as ops
 
 

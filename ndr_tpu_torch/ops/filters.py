@@ -1,5 +1,14 @@
-"""Solver-side density filters, differentiable under autograd
-(counterpart of the classic-path part of ``ndr_tpu/ops/filters.py``).
+"""Density filters, differentiable under autograd (counterpart of
+``ndr_tpu/ops/filters.py``; the Langelaar and callback filters are not
+ported yet, ROADMAP.md Queue 1 item 11).
+
+Two families:
+
+1. Solver-side filters of the classic SIMP pipeline:
+   :class:`ProjectionFilter` and :class:`SmoothingFilter`.
+2. Training-side filters of the neural pipeline: tanh projection
+   centered at 0, reflect-padded separable box and Gaussian blurs, and
+   the :class:`AdaptiveFilterState` schedule.
 
 All filters operate on density fields of shape ``grid.dims``; autograd
 through the forward pass gives the reference's hand-written backprop.
@@ -9,8 +18,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -60,3 +70,126 @@ def apply_filter_chain(x: torch.Tensor, filters: Sequence[Filter]) -> torch.Tens
     for f in filters:
         x = f.apply(x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Training-side filters
+# ---------------------------------------------------------------------------
+
+def projection_filter(x, beta, normalized=False):
+    """Tanh binarizer centered at 0."""
+    if normalized:
+        t = math.tanh(0.5 * beta)
+        return 0.5 * (t + torch.tanh(beta * x)) / t
+    return 0.5 * torch.tanh(beta * x) + 0.5
+
+
+def _reflect_index(n: int, pad: int) -> np.ndarray:
+    """Indices of a length-n axis padded by ``pad`` on each side in
+    ``numpy.pad(mode="reflect")`` order (mirror without repeating the
+    edge, folding again where pad >= n)."""
+    i = np.arange(-pad, n + pad)
+    if n == 1:
+        return np.zeros_like(i)
+    period = 2 * (n - 1)
+    i = np.mod(i, period)
+    return np.where(i < n, i, period - i)
+
+
+def _conv1d_along(x, kernel: torch.Tensor, axis: int):
+    """'Same' correlation with reflect padding along one axis, summed
+    tap by tap in the JAX package's order."""
+    k = kernel.shape[0]
+    n = x.shape[axis]
+    idx = torch.as_tensor(_reflect_index(n, k // 2), device=x.device)
+    xp = torch.index_select(x, axis, idx)
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + kernel[i] * xp.narrow(axis, i, n)
+    return out
+
+
+def smoothing_filter(x, radius: int):
+    """Normalized box blur with reflect padding (kornia.box_blur
+    semantics), separable, 2-D and 3-D."""
+    radius = int(round(radius))
+    if radius <= 0:
+        return x
+    k = 2 * radius + 1
+    kern = torch.full((k,), 1.0 / k, dtype=x.dtype, device=x.device)
+    for axis in range(x.ndim):
+        x = _conv1d_along(x, kern, axis)
+    return x
+
+
+def gaussian_kernel_1d(kernel_size: int, sigma: float, dtype=torch.float64,
+                       device="cpu") -> torch.Tensor:
+    """Kornia-compatible normalized Gaussian window."""
+    xs = torch.arange(kernel_size, dtype=dtype, device=device) - kernel_size // 2
+    g = torch.exp(-(xs ** 2) / (2.0 * sigma ** 2))
+    return g / g.sum()
+
+
+def gaussian_kernel_size(sigma: float) -> int:
+    """k = floor(6 sigma), forced odd."""
+    k = int(np.floor(6 * sigma))
+    if k % 2 == 0:
+        k -= 1
+    return max(k, 1)
+
+
+def gaussian_filter(x, sigma: float, kernel_size: Optional[int] = None):
+    """Gaussian blur with reflect padding."""
+    k = kernel_size or gaussian_kernel_size(sigma)
+    kern = gaussian_kernel_1d(k, sigma, dtype=x.dtype, device=x.device)
+    for axis in range(x.ndim):
+        x = _conv1d_along(x, kern, axis)
+    return x
+
+
+@dataclasses.dataclass
+class AdaptiveFilterState:
+    """Training-side filter parameters with their update schedules: the
+    reference's (projection, smoothing, Gaussian) filter triple and its
+    adaptive-filtering config."""
+
+    use_projection: bool = False
+    beta: float = 1.0
+    beta_interval: float = 0.1
+    beta_scaler: float = -1.0
+
+    use_smoothing: bool = False
+    radius: float = 1.0
+    radius_interval: float = 0.1
+    radius_scaler: float = -1.0
+
+    use_gaussian: bool = False
+    sigma: float = 1.0
+    sigma_interval: float = 0.1
+    sigma_scaler: float = -1.0
+
+    def apply(self, x):
+        """Apply the enabled filters with the current parameters, in the
+        reference's order: projection -> smoothing -> Gaussian."""
+        if self.use_projection:
+            x = projection_filter(x, self.beta, normalized=True)
+        if self.use_smoothing:
+            x = smoothing_filter(x, int(self.radius))
+        if self.use_gaussian:
+            x = gaussian_filter(x, self.sigma,
+                                kernel_size=gaussian_kernel_size(float(self.sigma)))
+        return x
+
+    def update(self, iteration: int):
+        """Multiply parameters by their scalers every `interval` iterations."""
+        if iteration == 0:
+            return
+        if self.use_projection and self.beta_interval >= 1 and iteration % int(self.beta_interval) == 0:
+            self.beta *= self.beta_scaler
+        if self.use_smoothing and self.radius_interval >= 1 and iteration % int(self.radius_interval) == 0:
+            self.radius *= self.radius_scaler
+        if self.use_gaussian and self.sigma_interval >= 1 and iteration % int(self.sigma_interval) == 0:
+            self.sigma *= self.sigma_scaler
+
+    def reset(self, beta=1.0, radius=1.0, sigma=1.0):
+        self.beta, self.radius, self.sigma = beta, radius, sigma

@@ -16,7 +16,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from ndr_tpu.io.problem import ProblemConfig
+from ndr_tpu_torch.io.problem import ProblemConfig
 from ndr_tpu_torch.fem import multigrid as mg
 from ndr_tpu_torch.fem import topopt
 from ndr_tpu_torch.fem.simulator import problem_from_config

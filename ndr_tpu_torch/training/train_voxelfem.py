@@ -17,8 +17,8 @@ import sys
 import numpy as np
 import torch
 
-from ndr_tpu.io import export
-from ndr_tpu.io.problem import load_problem
+from ndr_tpu_torch.io import export
+from ndr_tpu_torch.io.problem import load_problem
 from ndr_tpu_torch.training.classic import ground_truth_topopt
 from ndr_tpu_torch.utils import timers
 from ndr_tpu_torch.utils.torch_setup import resolve_device, setup

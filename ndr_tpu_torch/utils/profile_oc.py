@@ -31,7 +31,7 @@ from collections import defaultdict
 
 import torch
 
-from ndr_tpu.io.problem import load_problem
+from ndr_tpu_torch.io.problem import load_problem
 from ndr_tpu_torch.fem import multigrid as mg
 from ndr_tpu_torch.fem import topopt
 from ndr_tpu_torch.training.classic import ground_truth_topopt
@@ -54,12 +54,12 @@ SECTIONS = (
 
 
 @contextlib.contextmanager
-def synced_sections(on: list, seconds: dict, calls: dict):
-    """Wrap each function of :data:`SECTIONS` so that, while ``on[0]``
-    is true, the card is synchronized around the call and its wall time
-    is added to ``seconds[label]``."""
+def synced_sections(on: list, seconds: dict, calls: dict, sections=SECTIONS):
+    """Wrap each function of ``sections`` (label, owner, attribute) so
+    that, while ``on[0]`` is true, the card is synchronized around the
+    call and its wall time is added to ``seconds[label]``."""
     saved = []
-    for label, owner, attr in SECTIONS:
+    for label, owner, attr in sections:
         fn = getattr(owner, attr)
         saved.append((owner, attr, fn))
 
@@ -80,6 +80,28 @@ def synced_sections(on: list, seconds: dict, calls: dict):
     finally:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)
+
+
+def report(tag: str, unit: str, sections, seconds, calls, steps: int, synced,
+           wall, prof):
+    """Print the synced steps' median time (in ``unit``), the sections'
+    ms/step and the traced step's device busy time, idle share and top
+    device ops."""
+    print(f"{tag} {unit} with synced sections (median of {steps} steps) "
+          f"{statistics.median(synced):.4f}")
+    for label, *_ in sections:
+        print(f"{tag}   {label:40s} {1e3 * seconds[label] / steps:9.2f} ms/step"
+              f"  ({calls[label] / steps:.1f} calls/step)")
+    busy, n_ops, top = device_summary(prof)
+    if n_ops == 0:
+        print(f"{tag} traced step wall {1e3 * wall:.1f} ms; device time not "
+              "measured (the trace holds no device events)")
+        return
+    print(f"{tag} traced step wall {1e3 * wall:.1f} ms, device busy "
+          f"{1e3 * busy:.1f} ms, idle share {1 - busy / wall:.3f}, "
+          f"{n_ops} device ops")
+    for name, s, count in top:
+        print(f"{tag}   {name[:72]:72s} {1e3 * s:8.2f} ms  x{count}")
 
 
 def device_summary(prof):
@@ -126,23 +148,8 @@ def profile(cfg, dims, mgl: int, steps: int, kernels: str, device):
             callback=callback, log=lambda s: None)
     peak = torch.cuda.max_memory_allocated() / 2**30
 
-    synced = result.step_seconds[WARMUP:traced]
-    print(f"{tag} s/OC-iter with synced sections (median of {steps} steps) "
-          f"{statistics.median(synced):.4f}")
-    for label, *_ in SECTIONS:
-        print(f"{tag}   {label:40s} {1e3 * seconds[label] / steps:9.2f} ms/step"
-              f"  ({calls[label] / steps:.1f} calls/step)")
-    wall = result.step_seconds[traced]
-    busy, n_ops, top = device_summary(prof)
-    if n_ops == 0:
-        print(f"{tag} traced step wall {1e3 * wall:.1f} ms; device time not "
-              "measured (the trace holds no device events)")
-    else:
-        print(f"{tag} traced step wall {1e3 * wall:.1f} ms, device busy "
-              f"{1e3 * busy:.1f} ms, idle share {1 - busy / wall:.3f}, "
-              f"{n_ops} device ops")
-        for name, s, count in top:
-            print(f"{tag}   {name[:72]:72s} {1e3 * s:8.2f} ms  x{count}")
+    report(tag, "s/OC-iter", SECTIONS, seconds, calls, steps, result.step_seconds[WARMUP:traced],
+           result.step_seconds[traced], prof)
     print(f"{tag} peak memory {peak:.2f} GiB")
 
 

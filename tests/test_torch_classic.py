@@ -30,6 +30,7 @@ from ndr_tpu.training.classic import ground_truth_topopt as j_gt
 from ndr_tpu_torch.fem import multigrid as tmg
 from ndr_tpu_torch.fem import topopt as ttopopt
 from ndr_tpu_torch.fem.simulator import problem_from_config as t_problem_from_config
+from ndr_tpu_torch.io.problem import load_problem as t_load_problem
 from ndr_tpu_torch.ops import filters as tflt
 from ndr_tpu_torch.training import train_voxelfem
 from ndr_tpu_torch.training.classic import ground_truth_topopt as t_gt
@@ -51,10 +52,10 @@ _quiet = lambda s: None
 ], ids=["mbb-f64", "mbb-f32", "cantilever-f64", "cantilever-f32",
         "mbb-mgl0-f64", "mbb25x8-jacobi-f64"])
 def test_classic_matches_jax(prob_path, dims, mgl, iters, f64, rtol):
-    cfg = load_problem(prob_path)
-    rj = j_gt(cfg, dims=dims, max_iter=iters, multigrid_levels=mgl,
-              dtype=jnp.float64 if f64 else None, log=_quiet)
-    rt = t_gt(cfg, dims=dims, max_iter=iters, multigrid_levels=mgl,
+    rj = j_gt(load_problem(prob_path), dims=dims, max_iter=iters,
+              multigrid_levels=mgl, dtype=jnp.float64 if f64 else None,
+              log=_quiet)
+    rt = t_gt(t_load_problem(prob_path), dims=dims, max_iter=iters, multigrid_levels=mgl,
               dtype=torch.float64 if f64 else None, device="cpu", log=_quiet)
     hj, ht = np.asarray(rj.history), np.asarray(rt.history)
     assert ht.shape == hj.shape == (iters,)
@@ -69,8 +70,9 @@ def _both_problems(prob_path, dims, mgl, f64):
     cfg = load_problem(prob_path)
     pj, grid = j_problem_from_config(cfg, dims=dims,
                                      dtype=jnp.float64 if f64 else jnp.float32)
-    pt, _ = t_problem_from_config(cfg, dims=dims,
-                                  dtype=torch.float64 if f64 else torch.float32)
+    pt, _ = t_problem_from_config(t_load_problem(prob_path), dims=dims,
+                                  dtype=torch.float64 if f64 else torch.float32,
+                                  device="cpu")
     kw = dict(num_levels=mgl, smoother="chebyshev", cheb_degree=1)
     tj = jtopopt.TopologyOptimizationProblem(
         pj, [jflt.SmoothingFilter(1), jflt.ProjectionFilter(1.0)],

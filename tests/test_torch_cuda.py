@@ -13,12 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from ndr_tpu.io.problem import load_problem
 from ndr_tpu_torch.fem import kernels
 from ndr_tpu_torch.fem import multigrid as mg
 from ndr_tpu_torch.fem.simulator import problem_from_config
+from ndr_tpu_torch.io.problem import load_problem
+from ndr_tpu_torch.training import train_xdg
 from ndr_tpu_torch.training.classic import ground_truth_topopt
-from ndr_tpu_torch.utils import profile_oc
+from ndr_tpu_torch.utils import profile_neural, profile_oc
 from ndr_tpu_torch.utils.torch_setup import setup
 
 pytestmark = pytest.mark.gpu
@@ -54,14 +55,21 @@ def test_fine_kernels_match_twins(device, prob_path, dims):
     young = prob.young(rho)
     kernels.reset_launches()
     args32 = (u.float(), young.float(), prob.K0.float())
-    f32 = kernels.apply_k_fine_f32(*args32, grid)
-    f64 = kernels.apply_k_fine_f64(u, young, prob.K0, grid)
-    torch.cuda.synchronize()
-    # fp32: the summation order differs; f64: rounding only
-    assert _rel(f32, kernels.apply_k_fine_plain(*args32, grid)) < 1e-5
-    assert _rel(f64, kernels.apply_k_fine_plain(u, young, prob.K0, grid)) < 1e-12
-    assert kernels.launches["apply_k_fine_f32"] == 1
-    assert kernels.launches["apply_k_fine_f64"] == 1
+    ref32 = kernels.apply_k_fine_plain(*args32, grid)
+    ref64 = kernels.apply_k_fine_plain(u, young, prob.K0, grid)
+    # node-centric and element-centric kernels; fp32: the summation order
+    # differs; f64: rounding only
+    for f32_kernel, f64_kernel in ((kernels.apply_k_fine_f32, kernels.apply_k_fine_f64),
+                                   (kernels.apply_k_fine_elem_f32,
+                                    kernels.apply_k_fine_elem_f64)):
+        f32 = f32_kernel(*args32, grid)
+        f64 = f64_kernel(u, young, prob.K0, grid)
+        torch.cuda.synchronize()
+        assert _rel(f32, ref32) < 1e-5
+        assert _rel(f64, ref64) < 1e-12
+    assert kernels.launches == {"apply_k_fine_f32": 1, "apply_k_fine_elem_f32": 1,
+                                "apply_k_cached_f32": 0, "apply_k_fine_f64": 1,
+                                "apply_k_fine_elem_f64": 1}
 
 
 @pytest.mark.parametrize("prob_path,dims", CASES)
@@ -114,6 +122,16 @@ def test_profile_oc_small(device, capsys):
         assert f"{tag}   solve total" in out
 
 
+def test_profile_neural_small(device, capsys):
+    profile_neural.main(["--grid", "[16,8,8]", "--mgl", "2", "--es", "32",
+                         "--nn", "16", "--nl", "2", "--steps", "1"])
+    out = capsys.readouterr().out
+    assert "s/step with synced sections" in out
+    assert "traced step wall" in out
+    for label, *_ in profile_neural.SECTIONS:
+        assert label in out
+
+
 def test_wrappers_refuse_bad_inputs(device):
     prob, grid = problem_from_config(load_problem(CASES[1][0]), dims=CASES[1][1],
                                      device=device)
@@ -129,3 +147,29 @@ def test_wrappers_refuse_bad_inputs(device):
         kernels.apply_k_fine_f32(u, strided, K0, grid)
     with pytest.raises(ValueError):
         kernels.apply_k_fine_f32(u, young.cpu(), K0, grid)
+    with pytest.raises(TypeError):
+        kernels.apply_k_fine_elem_f64(u, young.double(), K0.double(), grid)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.apply_k_fine_elem_f32(u, strided, K0, grid)
+
+
+@pytest.mark.parametrize("fine_kernel,fine32,fine64", [
+    ("variant", "apply_k_fine_elem_f32", "apply_k_fine_f64"),
+    ("flat", "apply_k_fine_f32", "apply_k_fine_elem_f64"),
+])
+def test_neural_two_steps_on_card(device, tmp_path, fine_kernel, fine32, fine64):
+    """train_xdg on the card, 2 steps through the kernels that
+    ``--fine-kernel`` names; step-0 compliance as with kernels off."""
+    base = ["--prob", "problems/3d/bridge.json", "--grid", "[16,8,8]", "--mgl", "2",
+            "--iter", "2", "--es", "64", "--nn", "32", "--nl", "3",
+            "--vcs", "maxed_barrier", "--device", "cuda", "--out", str(tmp_path),
+            "--log-every", "1"]
+    kernels.reset_launches()
+    on = train_xdg.main(base + ["--jid", "on", "--fine-kernel", fine_kernel])
+    counts = dict(kernels.launches)
+    assert counts[fine32] > 0 and counts[fine64] > 0 and counts["apply_k_cached_f32"] > 0
+    off = train_xdg.main(base + ["--jid", "off", "--kernels", "off"])
+    assert np.isfinite(on.history).all() and np.isfinite(on.final_compliance)
+    assert abs(on.history[0] - off.history[0]) < 1e-4 * abs(off.history[0])
+    for f in ("on.vtr", "on_densities.npy", "on.npz", "on_history.json"):
+        assert (tmp_path / f).exists(), f

@@ -6,6 +6,8 @@ replaces, run in interpreter mode as ``tests/test_pallas.py`` runs it.
 The kernels themselves need the card (``tests/test_torch_cuda.py``).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ from ndr_tpu.fem import pallas_kernels as pk
 from ndr_tpu.fem.simulator import problem_from_config as j_problem_from_config
 from ndr_tpu.io.problem import load_problem
 from ndr_tpu_torch.fem import kernels
+from ndr_tpu_torch.grid import Grid as TGrid
 
 CASES = [
     ("problems/2d/mbb_beam.json", (12, 6)),
@@ -25,6 +28,11 @@ CASES = [
 # the interpreted cached and two-float Pallas kernels are slow on the CPU;
 # one 2-D and one 3-D shape (6x4x2: odd element count along y) suffice
 SLOW_CASES = [CASES[0], CASES[2]]
+
+
+def _port_grid(grid) -> TGrid:
+    """The port's Grid with the fields of a JAX-side Grid."""
+    return TGrid(**dataclasses.asdict(grid))
 
 
 def _setup(prob_path, dims, dtype, seed):
@@ -48,7 +56,7 @@ def test_fine_f32_twin_matches_pallas_flat(prob_path, dims):
     ref = pk.apply_k_pallas_flat(jnp.asarray(u), jnp.asarray(young),
                                  np.asarray(prob.K0), grid, interpret=True)
     out = kernels.apply_k_fine_plain(torch.tensor(u), torch.tensor(young),
-                                     torch.tensor(K0_32), grid)
+                                     torch.tensor(K0_32), _port_grid(grid))
     assert out.dtype == torch.float32
     assert _rel(out, ref) < 1e-5
 
@@ -64,10 +72,11 @@ def test_cached_f32_twin_matches_pallas_cached(prob_path, dims):
     u = rng.standard_normal(grid1.nodes_per_dim + (grid1.ndim,)).astype(np.float32)
     ref = pk.apply_k_pallas_cached(jnp.asarray(u), pk.ke_stream_layout(Ke1, grid1),
                                    grid1, interpret=True)
-    stream = kernels.ke_stream_layout(torch.tensor(np.asarray(Ke1)), grid1)
+    tgrid1 = _port_grid(grid1)
+    stream = kernels.ke_stream_layout(torch.tensor(np.asarray(Ke1)), tgrid1)
     np.testing.assert_array_equal(stream.numpy(),
                                   np.asarray(pk.ke_stream_layout(Ke1, grid1)))
-    out = kernels.apply_k_cached_f32_plain(torch.tensor(u), stream, grid1)
+    out = kernels.apply_k_cached_f32_plain(torch.tensor(u), stream, tgrid1)
     assert out.dtype == torch.float32
     assert _rel(out, ref) < 1e-5
 
@@ -87,7 +96,8 @@ def test_fine_f64_twin_matches_pallas_df(prob_path, dims):
     ref = pk.apply_k_pallas_df(*map(jnp.asarray, (u_hi, u_lo, y_hi, y_lo)),
                                np.asarray(prob.K0), grid, interpret=True)
     out = kernels.apply_k_fine_plain(torch.tensor(u), torch.tensor(young64),
-                                     torch.tensor(np.asarray(prob.K0)), grid)
+                                     torch.tensor(np.asarray(prob.K0)),
+                                     _port_grid(grid))
     assert out.dtype == torch.float64
     assert _rel(out, ref) < 2e-10
 
@@ -95,7 +105,8 @@ def test_fine_f64_twin_matches_pallas_df(prob_path, dims):
 @pytest.mark.parametrize("prob_path,dims", CASES)
 def test_wrappers_take_twins_on_cpu(prob_path, dims):
     """A CPU tensor goes to the plain twin: same result, no launch."""
-    prob, grid, rng = _setup(prob_path, dims, jnp.float32, 4)
+    prob, jgrid, rng = _setup(prob_path, dims, jnp.float32, 4)
+    grid = _port_grid(jgrid)
     T = lambda a, dt: torch.tensor(np.asarray(a), dtype=dt)
     young = rng.uniform(0.1, 1.0, grid.dims)
     u = rng.standard_normal(grid.nodes_per_dim + (grid.ndim,))
@@ -121,7 +132,8 @@ def test_wrappers_take_twins_on_cpu(prob_path, dims):
 
 
 def test_wrapper_refuses_other_devices():
-    prob, grid, rng = _setup(*CASES[1], jnp.float32, 5)
+    prob, jgrid, rng = _setup(*CASES[1], jnp.float32, 5)
+    grid = _port_grid(jgrid)
     u = torch.zeros(grid.nodes_per_dim + (3,), device="meta")
     with pytest.raises(ValueError, match="meta"):
         kernels.apply_k_fine_f32(u, torch.zeros(grid.dims, device="meta"),

@@ -6,6 +6,7 @@ compliance at 1e-5: both solves stop at the same 1e-4 residual test, and
 what remains is fp32 rounding in the preconditioner.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -20,6 +21,8 @@ from ndr_tpu.io.problem import load_problem
 from ndr_tpu_torch.fem import kernels
 from ndr_tpu_torch.fem import multigrid as tmg
 from ndr_tpu_torch.fem.simulator import problem_from_config as t_problem_from_config
+from ndr_tpu_torch.grid import Grid as TGrid
+from ndr_tpu_torch.io.problem import load_problem as t_load_problem
 
 CASES = [
     ("problems/2d/mbb_beam.json", (24, 8), 1),
@@ -29,12 +32,19 @@ IDS = ["mbb24x8-mgl1", "cantilever16x8x8-mgl2"]
 
 
 def _problems(prob_path, dims, f64=True):
-    cfg = load_problem(prob_path)
+    """(JAX problem, port problem on the CPU, JAX grid) from one config."""
     pj, grid = j_problem_from_config(
-        cfg, dims=dims, dtype=jnp.float64 if f64 else jnp.float32)
+        load_problem(prob_path), dims=dims,
+        dtype=jnp.float64 if f64 else jnp.float32)
     pt, _ = t_problem_from_config(
-        cfg, dims=dims, dtype=torch.float64 if f64 else torch.float32)
+        t_load_problem(prob_path), dims=dims,
+        dtype=torch.float64 if f64 else torch.float32, device="cpu")
     return pj, pt, grid
+
+
+def _port_grid(grid) -> TGrid:
+    """The port's Grid with the fields of a JAX-side Grid."""
+    return TGrid(**dataclasses.asdict(grid))
 
 
 def _rel(out: torch.Tensor, ref) -> float:
@@ -53,7 +63,7 @@ def test_build_mg_config_matches_jax(prob_path, dims, nl):
     cj, ct = jmg.build_mg_config(pj, nl), tmg.build_mg_config(pt, nl)
     assert ct.num_levels == cj.num_levels == nl + 1
     for l in range(nl + 1):
-        assert ct.levels[l].grid == cj.levels[l].grid
+        assert ct.levels[l].grid == _port_grid(cj.levels[l].grid)
         np.testing.assert_array_equal(ct.levels[l].dirichlet_mask.numpy(),
                                       cj.levels[l].dirichlet_mask)
         assert ct.level_kind(l) == cj.level_kind(l)

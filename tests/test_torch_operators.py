@@ -6,6 +6,7 @@ held to, so they are held to the JAX ops at 1e-12 of max|f| (only the
 summation order differs).
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -20,6 +21,8 @@ from ndr_tpu.fem import topopt as jtopopt
 from ndr_tpu.fem.simulator import problem_from_config as j_problem_from_config
 from ndr_tpu.io.problem import load_problem
 from ndr_tpu_torch.fem import operators as tops
+from ndr_tpu_torch.grid import Grid as TGrid
+from ndr_tpu_torch.io.problem import load_problem as t_load_problem
 from ndr_tpu_torch.fem import topopt as ttopopt
 from ndr_tpu_torch.fem.simulator import problem_from_config as t_problem_from_config
 from ndr_tpu_torch.fem.simulator import problem_from_numpy
@@ -34,17 +37,30 @@ OPS = ["apply_k", "apply_k_cached", "node_diag_blocks", "invert_blocks",
        "compliance_gradient"]
 
 
+def _port_grid(grid) -> TGrid:
+    """The port's Grid with the fields of a JAX-side Grid."""
+    return TGrid(**dataclasses.asdict(grid))
+
+
 def _problems(prob_path, dims):
-    cfg = load_problem(prob_path)
-    pj, grid = j_problem_from_config(cfg, dims=dims, dtype=jnp.float64)
-    pt, _ = t_problem_from_config(cfg, dims=dims, dtype=torch.float64)
+    """(JAX problem, port problem on the CPU, JAX grid) from one config."""
+    pj, grid = j_problem_from_config(load_problem(prob_path), dims=dims,
+                                     dtype=jnp.float64)
+    pt, _ = t_problem_from_config(t_load_problem(prob_path), dims=dims,
+                                  dtype=torch.float64, device="cpu")
     return pj, pt, grid
 
 
 def test_port_imports_without_jax():
-    code = ("import sys, ndr_tpu_torch.training.train_voxelfem, "
-            "ndr_tpu_torch.fem.kernels, ndr_tpu_torch.utils.profile_oc; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')]; "
+    """The port, its CLIs and chip_smoke's imports load neither JAX,
+    optax nor any module of the JAX package."""
+    code = ("import sys, ndr_tpu_torch.training.train_xdg, "
+            "ndr_tpu_torch.training.train_voxelfem, ndr_tpu_torch.fem.kernels, "
+            "ndr_tpu_torch.utils.profile_oc, ndr_tpu_torch.utils.profile_neural, "
+            "chip_smoke; "
+            "chip_smoke.port_modules(); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'optax', 'ndr_tpu')]; "
             "assert not bad, bad; print('ok')")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
@@ -64,17 +80,18 @@ def test_plain_op_matches_jax(prob_path, dims, op):
     K0 = np.asarray(pj.K0)
     d = K0.shape[0]
     T = lambda a: torch.tensor(np.asarray(a))
+    tg = pt.grid
     if op == "apply_k":
         ref = jops.apply_k(jnp.asarray(u), jnp.asarray(young), pj.K0, grid)
-        out = tops.apply_k(T(u), T(young), pt.K0, grid)
+        out = tops.apply_k(T(u), T(young), pt.K0, tg)
     elif op == "apply_k_cached":
         A = rng.standard_normal(grid.dims + (d, d))
         Ke = A + np.swapaxes(A, -1, -2)
         ref = jops.apply_k_cached(jnp.asarray(u), jnp.asarray(Ke), grid)
-        out = tops.apply_k_cached(T(u), T(Ke), grid)
+        out = tops.apply_k_cached(T(u), T(Ke), tg)
     elif op == "node_diag_blocks":
         ref = jops.node_diag_blocks(jnp.asarray(young), pj.K0, grid)
-        out = tops.node_diag_blocks(T(young), pt.K0, grid)
+        out = tops.node_diag_blocks(T(young), pt.K0, tg)
     elif op == "invert_blocks":
         M = np.asarray(jops.node_diag_blocks(jnp.asarray(young), pj.K0, grid))
         ref = jops.invert_blocks(jnp.asarray(M))
@@ -82,7 +99,7 @@ def test_plain_op_matches_jax(prob_path, dims, op):
     else:
         ref = jops.compliance_gradient(jnp.asarray(u), jnp.asarray(rho), pj.K0,
                                        grid, pj.E0, pj.Emin, pj.gamma)
-        out = tops.compliance_gradient(T(u), T(rho), pt.K0, grid,
+        out = tops.compliance_gradient(T(u), T(rho), pt.K0, tg,
                                        pt.E0, pt.Emin, pt.gamma)
     ref = np.asarray(ref)
     assert out.dtype == torch.float64 and tuple(out.shape) == ref.shape
@@ -93,7 +110,8 @@ def test_plain_op_matches_jax(prob_path, dims, op):
 @pytest.mark.parametrize("prob_path,dims", [CASES[0], CASES[1]])
 def test_problem_from_config_matches_jax(prob_path, dims):
     pj, pt, grid = _problems(prob_path, dims)
-    assert pt.grid == pj.grid == grid
+    assert pj.grid == grid and pt.grid == _port_grid(grid)
+    assert isinstance(pt.grid, TGrid)
     assert pt.K0.dtype == torch.float64
     np.testing.assert_array_equal(pt.K0.numpy(), np.asarray(pj.K0))
     np.testing.assert_array_equal(pt.force.numpy(), np.asarray(pj.force))
@@ -101,15 +119,15 @@ def test_problem_from_config_matches_jax(prob_path, dims):
                                   np.asarray(pj.dirichlet_mask))
     assert (pt.E0, pt.Emin, pt.gamma) == (pj.E0, pj.Emin, pj.gamma)
     # working dtype of the force field; K0 stays float64
-    p32, _ = t_problem_from_config(load_problem(prob_path), dims=dims,
-                                   dtype=torch.float32)
+    p32, _ = t_problem_from_config(t_load_problem(prob_path), dims=dims,
+                                   dtype=torch.float32, device="cpu")
     assert p32.force.dtype == torch.float32 and p32.K0.dtype == torch.float64
 
 
 def test_state_carry_converters():
     pj, _, grid = _problems(*CASES[1])
     pt = problem_from_numpy(np.asarray(pj.K0), np.asarray(pj.force),
-                            np.asarray(pj.dirichlet_mask), grid,
+                            np.asarray(pj.dirichlet_mask), _port_grid(grid),
                             pj.E0, pj.Emin, pj.gamma, device="cpu")
     np.testing.assert_array_equal(pt.K0.numpy(), np.asarray(pj.K0))
     np.testing.assert_array_equal(pt.force.numpy(), np.asarray(pj.force))
