@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the five hand-written CUDA kernels from ``ndr_tpu_torch/csrc/``,
-holds each against its plain PyTorch twin on the card (at the test shapes
-and at the shapes the paths below give it) and times each at 192x96x96
+Builds the hand-written CUDA kernels from ``ndr_tpu_torch/csrc/`` (one
+for each Pallas kernel, and the cached levels' stencil assembly), holds
+each against its plain PyTorch twin on the card (at the test shapes and
+at the shapes the paths below give it) and times each at 192x96x96
 beside its bound, its twin and one library call (cuSPARSE CSR SpMV on
 the assembled K). Then it drives the port's paths through their CLIs,
 each with the launch counters set to 0 just before and read just after:
@@ -68,7 +69,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 FINE = {  # wrapper -> (source, replaced TPU kernel, dtype)
-    "apply_k_fine_f32": ("ndr_tpu_torch/csrc/apply_k_fine.cu",
+    "apply_k_fine_f32": ("ndr_tpu_torch/csrc/apply_k_fine_f32.cu",
                          "ndr_tpu/fem/pallas_kernels.py:395", torch.float32),
     "apply_k_fine_elem_f32": ("ndr_tpu_torch/csrc/apply_k_fine_elem.cu",
                               "ndr_tpu/fem/pallas_kernels.py:238", torch.float32),
@@ -77,8 +78,13 @@ FINE = {  # wrapper -> (source, replaced TPU kernel, dtype)
     "apply_k_fine_elem_f64": ("ndr_tpu_torch/csrc/apply_k_fine_elem.cu",
                               "ndr_tpu/fem/pallas_kernels.py:852", torch.float64),
 }
-CACHED = ("apply_k_cached_f32", "ndr_tpu_torch/csrc/apply_k_cached_f32.cu",
-          "ndr_tpu/fem/pallas_kernels.py:1096")
+CACHED = {  # wrapper -> (source, replaced TPU kernel or its operand layout)
+    "apply_k_cached_f32": ("ndr_tpu_torch/csrc/cached_stencil.cu",
+                           "ndr_tpu/fem/pallas_kernels.py:1096"),
+    "cached_stencil": ("ndr_tpu_torch/csrc/cached_stencil.cu",
+                       "ndr_tpu/fem/pallas_kernels.py:1075"),
+}
+SLEEP_CYCLES = 200_000_000   # ~0.1 s of device time: the host queues all timed reps in it
 
 
 def fail(msg: str):
@@ -110,21 +116,23 @@ def gpu_line() -> str:
 
 def time_ms(fn, reps: int = 20) -> float:
     """Median device time of fn() in ms from CUDA events, with the L2
-    flushed before each launch (the solver finds its operands cold)."""
+    flushed before each launch (the solver finds its operands cold). Every
+    rep is queued behind a device sleep, so the events time the device's
+    work and not the host's Python between them."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
-    times = []
-    for _ in range(reps):
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for a, b in events:
         flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
         b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
 def errors(out, ref):
@@ -139,22 +147,32 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def stencil_csr(grid, block, dtype):
-    """K of a degree-1 grid as a CSR matrix (int32 indices), assembled
-    once from per-element blocks: ``block(a, b)`` is the (dims..., N, N)
-    coupling of local node a's rows to local node b's columns. Each row
-    holds all 3^N neighbour offsets; entries outside the grid are zero."""
+def stencil_from_blocks(kernels, grid, block, dtype):
+    """The node stencil (``kernels.stencil_shape``) of K from per-element
+    blocks: ``block(a, b)`` is the (dims..., N, N) coupling of local node
+    a's rows to local node b's columns (the fine level's E_e K0 blocks,
+    made one at a time)."""
     N = grid.ndim
-    nodes = grid.nodes_per_dim
-    offs = list(itertools.product((-1, 0, 1), repeat=N))
+    offs = kernels.stencil_offsets(N)
     local = list(itertools.product((0, 1), repeat=N))
-    dev = block(0, 0).device
-    vals = torch.zeros(nodes + (len(offs), N, N), dtype=dtype, device=dev)
+    S = torch.zeros(kernels.stencil_shape(grid), dtype=dtype, device="cuda")
     for a, ab in enumerate(local):
         rows = tuple(slice(o, o + n) for o, n in zip(ab, grid.dims))
         for b, bb in enumerate(local):
             o = offs.index(tuple(y - x for x, y in zip(ab, bb)))
-            vals[rows + (o,)] += block(a, b).to(dtype)
+            S[(o, slice(None), slice(None)) + rows] += block(a, b).to(dtype).movedim(
+                (-2, -1), (0, 1))
+    return S
+
+
+def stencil_csr(kernels, grid, S):
+    """K of a degree-1 grid as a CSR matrix (int32 indices) from its node
+    stencil S: row (n, c) holds all 3^N N neighbour columns, in the
+    stencil's offset order; entries outside the grid are zero."""
+    N = grid.ndim
+    nodes = grid.nodes_per_dim
+    offs = kernels.stencil_offsets(N)
+    dev = S.device
     n_nodes = grid.num_nodes
     strides = [int(math.prod(nodes[k + 1:])) for k in range(N)]
     idx = torch.arange(n_nodes, device=dev)
@@ -172,9 +190,9 @@ def stencil_csr(grid, block, dtype):
     d = torch.arange(N, device=dev)
     cols = (nbr[:, None, :, None] * N + d[None, None, None, :]).expand(
         n_nodes, N, len(offs), N).reshape(n_nodes * N, -1).to(torch.int32)
-    v = vals.reshape(n_nodes, len(offs), N, N).permute(0, 2, 1, 3).reshape(
+    # (o, c, d, node) -> row (node, c), columns (o, d)
+    v = S.reshape(len(offs), N, N, n_nodes).permute(3, 1, 0, 2).reshape(
         n_nodes * N, -1).contiguous()
-    del vals
     per_row = v.shape[1]
     crow = torch.arange(0, n_nodes * N * per_row + 1, per_row, dtype=torch.int32,
                         device=dev)
@@ -205,8 +223,9 @@ def phase_build(m):
 
 def phase_kernels(m):
     """Each kernel against its twin at the test shapes and the paths'
-    shapes; at 192x96x96 (cached: its levels 1 and 2) each is timed beside
-    its twin and the CSR SpMV. Returns (worst abs error, records)."""
+    shapes; at 192x96x96 (cached apply and stencil assembly: its levels 1
+    and 2) each is timed beside its bound, its twin and, for the applies,
+    the CSR SpMV. Returns (worst abs error, records)."""
     import numpy as np
 
     kernels = m.kernels
@@ -244,6 +263,30 @@ def phase_kernels(m):
                 shape=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops))
         print(line, flush=True)
+        return out
+
+    def cached(ke, g, label, timed):
+        """Assembly and apply of one cached level's stencil."""
+        N = g.ndim
+        d = g.nodes_per_elem * N
+        nn, ne = g.num_nodes, g.num_elements
+        slots = 3 ** N * N * N
+        S = run("cached_stencil", kernels.cached_stencil, kernels.cached_stencil_plain,
+                (ke,), g, TOL_F32, label,
+                cost=(4 * d * d * ne + 4 * slots * nn, d * d * ne, torch.float32)
+                if timed else None)
+        ul = torch.tensor(rng.standard_normal(g.nodes_per_dim + (N,)),
+                          dtype=torch.float32, device=dev)
+        run("apply_k_cached_f32", kernels.apply_k_cached_f32,
+            kernels.apply_k_cached_f32_plain, (ul, S), g, TOL_F32, label,
+            cost=(4 * slots * nn + 8 * N * nn, 2 * slots * nn, torch.float32)
+            if timed else None,
+            library=(lambda: (stencil_csr(kernels, g, S), ul.reshape(-1)))
+            if timed else None)
+        if timed:  # what the per-element Ke stack apply had to move: the stack, u and f
+            old = bound(4 * d * d * ne + 8 * N * nn, 2 * d * d * ne, torch.float32)
+            print(f"    bound of the per-element Ke stack it replaces: {old[0]:.4f} ms "
+                  f"by {old[1]} ({(4 * d * d * ne + 8 * N * nn) / 1e6:.1f} MB)")
 
     rng = np.random.default_rng(0)
     for prob_path, dims in TEST_SHAPES + [(PROB, GRID)]:
@@ -263,17 +306,37 @@ def phase_kernels(m):
 
             def library(args=args, grid=grid):
                 ke = args[2]
-                K = stencil_csr(grid, lambda a, c: args[1][..., None, None]
-                                * ke[a * N:(a + 1) * N, c * N:(c + 1) * N], args[0].dtype)
+                S = stencil_from_blocks(kernels, grid, lambda a, c: args[1][..., None, None]
+                                        * ke[a * N:(a + 1) * N, c * N:(c + 1) * N],
+                                        args[0].dtype)
+                K = stencil_csr(kernels, grid, S)
+                del S
                 return K, args[0].reshape(-1)
 
+            npe = grid.nodes_per_elem
+            L = npe.bit_length() - 1
+            # operations of the kernel's design: dense K0 (and the young
+            # scale), or for apply_k_fine_f32 the reflection basis: the two
+            # transforms (in 3-D the lower node plane's is carried from the
+            # previous element), 2^N N x N blocks, the young scale fused with
+            # the carried forces
+            flops = (ne * (2 * d * L - (d if N == 3 else 0) + 2 * npe * N * N + 2 * d)
+                     if name == "apply_k_fine_f32" else ne * (2 * d * d + d))
             run(name, getattr(kernels, name), kernels.apply_k_fine_plain, args, grid,
                 tol, f"fine {dims}",
-                cost=(2 * N * nn * b + ne * b, ne * (2 * d * d + d), dt) if timed else None,
+                cost=(2 * N * nn * b + ne * b, flops, dt) if timed else None,
                 library=library if timed else None)
+            if timed and name == "apply_k_fine_f32":
+                dense = bound(2 * N * nn * b + ne * b, ne * (2 * d * d + d), dt)
+                print(f"    bound with the dense K0 contraction: {dense[0]:.4f} ms "
+                      f"by {dense[1]} ({ne * (2 * d * d + d) / 1e9:.2f} GFLOP)")
+        if not timed:  # a random stack on the grid itself (any shape, coarsenable or not)
+            ke = torch.tensor(rng.standard_normal(grid.dims + (d, d)),
+                              dtype=torch.float32, device=dev)
+            cached(ke, grid, f"random Ke {dims}", False)
 
-        # cached: the Galerkin levels of this grid's hierarchy, built as
-        # the solver builds them (level 1 direct, deeper levels recursive)
+        # the Galerkin levels of this grid's hierarchy, built as the solver
+        # builds them (level 1 direct, deeper levels recursive)
         nl = MGL if timed else min(1, m.mg.max_feasible_coarsenings(grid))
         cfg = m.mg.build_mg_config(prob, nl)
         ke = m.mg.build_level_ke(cfg, young.float(), 1) if nl else None
@@ -283,21 +346,7 @@ def phase_kernels(m):
             if l == nl and timed:
                 break  # the coarsest level is factored, not applied
             g = cfg.levels[l].grid
-            stream = kernels.ke_stream_layout(ke, g)
-            ul = torch.tensor(rng.standard_normal(g.nodes_per_dim + (N,)),
-                              dtype=torch.float32, device=dev)
-
-            def library(ke=ke, g=g, ul=ul):
-                K = stencil_csr(g, lambda a, c: ke[..., a * N:(a + 1) * N,
-                                                   c * N:(c + 1) * N], torch.float32)
-                return K, ul.reshape(-1)
-
-            run(CACHED[0], kernels.apply_k_cached_f32, kernels.apply_k_cached_f32_plain,
-                (ul, stream), g, TOL_F32, f"level {l} {g.dims}",
-                cost=(4 * d * d * g.num_elements + 8 * N * g.num_nodes,
-                      2 * d * d * g.num_elements, torch.float32) if timed else None,
-                library=library if timed else None)
-            del stream
+            cached(ke.contiguous(), g, f"level {l} {g.dims}", timed)
         del ke
         torch.cuda.empty_cache()
     return worst, records
@@ -435,7 +484,8 @@ def main():
         print(f"== 4. classic: {PROB} {GRID} mgl={MGL}, {ITERS} OC steps")
         (steps_on, t_on), counts, peak = run_path(
             m, "classic on", lambda: classic(m, "on"),
-            ("apply_k_fine_f32", "apply_k_cached_f32", "apply_k_fine_f64"))
+            ("apply_k_fine_f32", "apply_k_cached_f32", "cached_stencil",
+             "apply_k_fine_f64"))
         total = {k: total[k] + counts[k] for k in total}
         (steps_off, t_off), _, peak_off = run_path(
             m, "classic off", lambda: classic(m, "off"), ())
@@ -452,7 +502,7 @@ def main():
                 m, f"neural {fk}",
                 lambda fk=fk: neural(m, f"star_{fk}", GRID, 3, "constrained_sigmoid",
                                      NEURAL_STEPS, ["--fine-kernel", fk]),
-                (fine32, "apply_k_cached_f32", fine64))
+                (fine32, "apply_k_cached_f32", "cached_stencil", fine64))
             total = {k: total[k] + counts[k] for k in total}
             star[fk] = lines
             timings.append(f"neural {GRID} mgl=3 fine-kernel {fk}: s/step {s_step:.4f}, "
@@ -466,7 +516,8 @@ def main():
             m, "bench flat",
             lambda: neural(m, "bench_flat", BENCH_GRID, 2, "maxed_barrier",
                            BENCH_STEPS, ["--fine-kernel", "flat"]),
-            ("apply_k_fine_f32", "apply_k_cached_f32", "apply_k_fine_elem_f64"))
+            ("apply_k_fine_f32", "apply_k_cached_f32", "cached_stencil",
+             "apply_k_fine_elem_f64"))
         total = {k: total[k] + counts[k] for k in total}
         (lines_off, s_off), _, peak_off = run_path(
             m, "bench off",
@@ -487,9 +538,9 @@ def main():
         print(line)
     out = []
     for name in ("apply_k_fine_f32", "apply_k_fine_elem_f32", "apply_k_cached_f32",
-                 "apply_k_fine_f64", "apply_k_fine_elem_f64"):
-        src, rep = (CACHED[1], CACHED[2]) if name == CACHED[0] else FINE[name][:2]
-        r = records[name][0]  # fine: 192x96x96; cached: level 1
+                 "cached_stencil", "apply_k_fine_f64", "apply_k_fine_elem_f64"):
+        src, rep = CACHED[name] if name in CACHED else FINE[name][:2]
+        r = records[name][0]  # fine: 192x96x96; cached and stencil: level 1
         out.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                     "launches": total[name], "max_abs_err": worst[name],
                     "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -1,25 +1,17 @@
-// Fine-level stiffness apply  f = K(E) u  for degree-1 voxel grids, in
-// fp32 (the CG and smoother hot path) and in float64 (the true residual
-// r = f - K u of the mixed-precision refinement). One templated kernel,
-// two C entry points.
+// Fine-level float64 stiffness apply  f = K(E) u  for degree-1 voxel grids:
+// the true residual r = f - K u of the mixed-precision refinement.
 //
-// Replaces, in ndr_tpu/fem/pallas_kernels.py:
-//   - ndr_apply_k_fine_f32: apply_k_pallas_flat, the default "flat32"
-//     fine kernel of apply_k_pallas_fine, which fuses the element gather,
-//     the K0 contraction, the SIMP scale and the scatter. Its lane
-//     padding, lane rolls and VMEM carry are not carried over.
-//   - ndr_apply_k_fine_f64: apply_k_pallas_df (reached through
-//     apply_k_pallas_df_fine), which builds an f64-accurate apply from
-//     fp32 hi/lo pairs with bitmask splits and TwoSum because the TPU has
-//     no native float64. Hopper has native FP64, so it is the same stencil
-//     in double: no split, no error-free transforms, and no accuracy floor
-//     (the JAX solver used the two-float kernel only at tol >= 1e-6; this
-//     one serves every tol).
+// Replaces: ndr_tpu/fem/pallas_kernels.py apply_k_pallas_df (reached
+// through apply_k_pallas_df_fine), which builds an f64-accurate apply from
+// fp32 hi/lo pairs with bitmask splits and TwoSum because the TPU has no
+// native float64. Hopper has native FP64, so this is the node-centric
+// stencil in double: no split, no error-free transforms, and no accuracy
+// floor (the JAX solver used the two-float kernel only at tol >= 1e-6; this
+// one serves every tol). The fp32 fine apply is apply_k_fine_f32.cu.
 //
-// Bound on Hopper: device-memory bytes. Per node it must read N values of
-// u and write N values of f, plus one young value per element (~28 B/node
-// in 3-D in fp32, twice that in f64); the 2^N x 8N FMAs per node are far
-// below the card's fp32 and FP64 rates. Design: one thread per node
+// Bound on Hopper: operations. Per node it must read N values of u and
+// write N values of f, plus one young value per element (~56 B/node in 3-D
+// in f64); the 2^N x 8N FMAs per node bound it. Design: one thread per node
 // (z fastest across a warp), K0 in __constant__ memory (every lane of a
 // warp reads the same coefficient, which the constant cache broadcasts),
 // the 3^N neighbour u values and 2^N young values re-read through L1, so
@@ -29,13 +21,10 @@
 
 namespace {
 
-__constant__ float c_K0_f32[24 * 24];
 __constant__ double c_K0_f64[24 * 24];
 
 template <typename T>
 __device__ __forceinline__ T k0(int i);
-template <>
-__device__ __forceinline__ float k0<float>(int i) { return c_K0_f32[i]; }
 template <>
 __device__ __forceinline__ double k0<double>(int i) { return c_K0_f64[i]; }
 
@@ -85,15 +74,8 @@ int launch_fine(const Symbol& c_K0, const void* u, const void* young,
 
 }  // namespace
 
-// u: nodes + (N,); young: dims; K0: (2^N N)^2 on the device, all fp32;
-// f: nodes + (N,) fp32, written in full. Returns a cudaError_t code.
-extern "C" int ndr_apply_k_fine_f32(const void* u, const void* young,
-                                    const void* K0, void* f, int ndim, int ex,
-                                    int ey, int ez, void* stream) {
-  return launch_fine<float>(c_K0_f32, u, young, K0, f, ndim, ex, ey, ez, stream);
-}
-
-// As ndr_apply_k_fine_f32, with every array float64.
+// u: nodes + (N,); young: dims; K0: (2^N N)^2 on the device, all float64;
+// f: nodes + (N,) float64, written in full. Returns a cudaError_t code.
 extern "C" int ndr_apply_k_fine_f64(const void* u, const void* young,
                                     const void* K0, void* f, int ndim, int ex,
                                     int ey, int ez, void* stream) {

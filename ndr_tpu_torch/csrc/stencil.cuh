@@ -1,4 +1,5 @@
-// Node-centric stencil shared by the three stiffness-apply kernels.
+// Node-centric stencil of the float64 fine apply (apply_k_fine.cu), and the
+// index helpers the element-centric kernels (apply_k_fine_elem.cu) share.
 //
 // Conventions are ndr_tpu's (ndr_tpu/grid.py): element dims (ex, ey[, ez]),
 // node dims one larger, C order (last axis fastest), node fields
@@ -13,7 +14,7 @@
 // Every output is written once by one thread, so there are no atomics and
 // no scatter pass, and the result does not depend on scheduling. With the
 // z index fastest across a warp, neighbouring threads read neighbouring
-// u, young and (for the cached kernel) Ke addresses.
+// u and young addresses.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,9 +49,8 @@ __device__ __forceinline__ NodeIndex node_index(long long idx, int ny, int nz) {
 }
 
 // Sum over the incident elements of n. `Coef` supplies the per-element
-// coefficient Ke_e[row, col] and the per-element scale (young for the
-// fine kernels, 1 for the cached kernel); it is told the element's flat
-// index and its (x, flattened-trailing) split.
+// coefficient Ke_e[row, col] and the per-element scale (young); it is told
+// the element's flat index and its (x, flattened-trailing) split.
 template <typename T, int NDIM, typename Coef>
 __device__ __forceinline__ void node_apply(const T* __restrict__ u,
                                            T* __restrict__ f, long long idx,

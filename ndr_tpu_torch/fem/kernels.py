@@ -1,24 +1,32 @@
 """Hand-written CUDA stiffness kernels, their wrappers and plain twins
 (counterpart of ``ndr_tpu/fem/pallas_kernels.py``).
 
-Five kernels, one for each Pallas kernel; their sources are in
-``ndr_tpu_torch/csrc/``. The node-centric fine applies are one templated
-kernel in ``apply_k_fine.cu``, the element-centric ones another in
-``apply_k_fine_elem.cu``:
+One kernel for each Pallas kernel, plus the assembly of the cached
+levels' node stencil; their sources are in ``ndr_tpu_torch/csrc/``:
 
-=====================  ===========================  =========================
-wrapper                replaces (pallas_kernels.py)  plain twin
-=====================  ===========================  =========================
-apply_k_fine_f32       apply_k_pallas_flat           apply_k_fine_plain (f32)
-apply_k_fine_elem_f32  apply_k_pallas                apply_k_fine_plain (f32)
-apply_k_cached_f32     apply_k_pallas_cached         apply_k_cached_f32_plain
-                                                     on the stream layout
-apply_k_fine_f64       apply_k_pallas_df             apply_k_fine_plain (f64)
-apply_k_fine_elem_f64  apply_k_pallas_df_flat        apply_k_fine_plain (f64)
-=====================  ===========================  =========================
+=====================  ============================  ====================
+wrapper                replaces (pallas_kernels.py)  source (csrc/)
+=====================  ============================  ====================
+apply_k_fine_f32       apply_k_pallas_flat           apply_k_fine_f32.cu
+apply_k_fine_elem_f32  apply_k_pallas                apply_k_fine_elem.cu
+apply_k_cached_f32     apply_k_pallas_cached         cached_stencil.cu
+cached_stencil         ke_stream_layout, the cached  cached_stencil.cu
+                       kernel's operand layout
+apply_k_fine_f64       apply_k_pallas_df             apply_k_fine.cu
+apply_k_fine_elem_f64  apply_k_pallas_df_flat        apply_k_fine_elem.cu
+=====================  ============================  ====================
 
-Which fine kernels the solver runs is its ``fine_kernel`` setting
-(:func:`fine_kernels`), the JAX package's fine-kernel switch.
+Plain twins: :func:`apply_k_fine_plain` for the four fine wrappers,
+:func:`apply_k_cached_f32_plain` and :func:`cached_stencil_plain`.
+The fp32 fine apply is element-centric in the basis of the element's
+reflections (:func:`reflection_blocks`), streamed along x; the
+float64 one runs one thread per node; the element-centric ones compute
+each element's contraction once and sum partials in a second pass. A
+cached (Galerkin) level is applied from its assembled node stencil
+(:func:`cached_stencil`, built once per hierarchy build), not from its
+per-element Ke stack. Which fine kernels the solver runs is its
+``fine_kernel`` setting (:func:`fine_kernels`), the JAX package's
+fine-kernel switch.
 
 A wrapper takes its twin only for tensors on the CPU. For a CUDA tensor
 it launches its kernel or raises: there is no fallback. Each launch adds
@@ -35,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import subprocess
 import time
@@ -48,7 +57,8 @@ from ndr_tpu_torch.fem import operators as ops
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ndr_tpu_torch"
-_SOURCES = ("apply_k_fine.cu", "apply_k_fine_elem.cu", "apply_k_cached_f32.cu")
+_SOURCES = ("apply_k_fine_f32.cu", "apply_k_fine.cu", "apply_k_fine_elem.cu",
+            "cached_stencil.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,11 +67,15 @@ launches: Dict[str, int] = {
     "apply_k_fine_f32": 0,
     "apply_k_fine_elem_f32": 0,
     "apply_k_cached_f32": 0,
+    "cached_stencil": 0,
     "apply_k_fine_f64": 0,
     "apply_k_fine_elem_f64": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
+#: The K0 tensor (and its version) whose reflection blocks the fp32 fine
+#: kernel's constant memory holds, per device index.
+_fine_k0: Dict[int, Tuple[torch.Tensor, int]] = {}
 #: What the last :func:`build` did: library path, seconds, compiler output.
 build_info: Dict[str, object] = {}
 
@@ -106,7 +120,9 @@ def build() -> float:
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ndr_apply_k_fine_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.ndr_fine_set_blocks.argtypes = [ptr, i32, ptr]
+    lib.ndr_fine_set_blocks.restype = i32
+    lib.ndr_apply_k_fine_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.ndr_apply_k_fine_f32.restype = i32
     lib.ndr_apply_k_fine_f64.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.ndr_apply_k_fine_f64.restype = i32
@@ -114,11 +130,14 @@ def build() -> float:
         getattr(lib, name).argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                        i32, i32, ptr]
         getattr(lib, name).restype = i32
+    lib.ndr_cached_stencil_f32.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.ndr_cached_stencil_f32.restype = i32
     lib.ndr_apply_k_cached_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.ndr_apply_k_cached_f32.restype = i32
     lib.ndr_error_string.argtypes = [i32]
     lib.ndr_error_string.restype = ctypes.c_char_p
     _lib = lib
+    _fine_k0.clear()
     seconds = time.perf_counter() - t0
     build_info.update(path=str(lib_path), seconds=seconds, log=log)
     return seconds
@@ -188,32 +207,96 @@ def _check_fine(u, young, K0, grid: Grid, dtype: torch.dtype) -> None:
     _check("K0", K0, dtype, (d_pe, d_pe), u.device)
 
 
-def _apply_fine(u, young, K0, grid: Grid, dtype: torch.dtype,
-                name: str) -> torch.Tensor:
-    if not _on_cuda(u):
-        return apply_k_fine_plain(u, young, K0, grid)
-    _check_fine(u, young, K0, grid, dtype)
-    entry = getattr(_library(), f"ndr_{name}")
-    f = torch.empty_like(u)
-    with torch.cuda.device(u.device):
-        code = entry(u.data_ptr(), young.data_ptr(), K0.data_ptr(), f.data_ptr(),
-                     grid.ndim, *_dims3(grid), _stream(u.device))
-    _check_launch(code, name)
-    launches[name] += 1
-    return f
+#: Largest coefficient of K0 outside the reflection blocks, relative to
+#: its largest, that :func:`reflection_blocks` accepts (fp32 rounding of a
+#: symmetric K0 leaves 0; a float64 one ~1e-16).
+REFLECTION_TOL = 1e-6
+
+
+def reflection_blocks(K0: torch.Tensor, ndim: int) -> torch.Tensor:
+    """K0 in the basis of the element's reflections, as the fp32 fine
+    kernel takes it: (2^N, N, N) blocks B_s[c, d], divided by 2^N.
+
+    With W the Walsh-Hadamard transform over the element's 2^N nodes
+    applied to each component, ``W[(t, d), (b, d)] = (-1)^popcount(t & b)``,
+    M = W K0 W^T / 2^N couples (t, c) with (t', d) only where
+    t ^ e_c = t' ^ e_d (e_c the offset bit of axis c), and
+    K0 u = W^T blockdiag(M) W u / 2^N. That holds when K0 is invariant
+    under reflecting the element along each axis, as the stiffness of a box
+    element with an isotropic material is; any other K0 raises."""
+    npe = 1 << ndim
+    sign = [[(-1.0) ** bin(t & b).count("1") for b in range(npe)] for t in range(npe)]
+    Wn = torch.tensor(sign, dtype=torch.float64, device=K0.device)
+    W = torch.kron(Wn, torch.eye(ndim, dtype=torch.float64, device=K0.device))
+    M = W @ K0.double() @ W.t() / npe
+    flip = [1 << (ndim - 1 - c) for c in range(ndim)]
+    s = torch.arange(npe, device=K0.device)[:, None, None]
+    rows = (s ^ torch.tensor(flip, device=K0.device)[None, :, None]) * ndim \
+        + torch.arange(ndim, device=K0.device)[None, :, None]
+    cols = (s ^ torch.tensor(flip, device=K0.device)[None, None, :]) * ndim \
+        + torch.arange(ndim, device=K0.device)[None, None, :]
+    B = M[rows, cols]                                  # (2^N, N, N)
+    off = M.clone()
+    off[rows, cols] = 0.0
+    rel = float(off.abs().max() / M.abs().max())
+    if rel > REFLECTION_TOL:
+        raise ValueError(
+            f"K0 is not invariant under the element's reflections (coupling "
+            f"outside the reflection blocks {rel:.2e} of the largest > "
+            f"{REFLECTION_TOL:g}): the fp32 fine kernel takes box elements of "
+            f"an isotropic material")
+    return (B / npe).to(torch.float32).contiguous()
+
+
+def _set_fine_blocks(K0: torch.Tensor, grid: Grid) -> None:
+    """Copy K0's reflection blocks into the fp32 fine kernel's constant
+    memory unless this very tensor, unchanged since, is already there (once
+    per problem, not per launch). Holding the tensor keeps its memory from
+    being reused."""
+    held = _fine_k0.get(K0.device.index)
+    if held is not None and held[0] is K0 and held[1] == K0._version:
+        return
+    B = reflection_blocks(K0, grid.ndim)
+    code = _lib.ndr_fine_set_blocks(B.data_ptr(), grid.ndim, _stream(K0.device))
+    _check_launch(code, "apply_k_fine_f32 (K0 blocks upload)")
+    _fine_k0[K0.device.index] = (K0, K0._version)
 
 
 def apply_k_fine_f32(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
                      grid: Grid) -> torch.Tensor:
-    """f = K(E) u in fp32 on a degree-1 grid; K0 is (d_pe, d_pe) fp32."""
-    return _apply_fine(u, young, K0, grid, torch.float32, "apply_k_fine_f32")
+    """f = K(E) u in fp32 on a degree-1 grid; K0 is (d_pe, d_pe) fp32 and
+    must be invariant under the element's reflections
+    (:func:`reflection_blocks`)."""
+    if not _on_cuda(u):
+        return apply_k_fine_plain(u, young, K0, grid)
+    _check_fine(u, young, K0, grid, torch.float32)
+    lib = _library()
+    f = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        _set_fine_blocks(K0, grid)
+        code = lib.ndr_apply_k_fine_f32(u.data_ptr(), young.data_ptr(), f.data_ptr(),
+                                        grid.ndim, *_dims3(grid), _stream(u.device))
+    _check_launch(code, "apply_k_fine_f32")
+    launches["apply_k_fine_f32"] += 1
+    return f
 
 
 def apply_k_fine_f64(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
                      grid: Grid) -> torch.Tensor:
     """f = K(E) u in float64 on a degree-1 grid; K0 is (d_pe, d_pe) f64.
     The refinement loop's true residual."""
-    return _apply_fine(u, young, K0, grid, torch.float64, "apply_k_fine_f64")
+    if not _on_cuda(u):
+        return apply_k_fine_plain(u, young, K0, grid)
+    _check_fine(u, young, K0, grid, torch.float64)
+    lib = _library()
+    f = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        code = lib.ndr_apply_k_fine_f64(u.data_ptr(), young.data_ptr(), K0.data_ptr(),
+                                        f.data_ptr(), grid.ndim, *_dims3(grid),
+                                        _stream(u.device))
+    _check_launch(code, "apply_k_fine_f64")
+    launches["apply_k_fine_f64"] += 1
+    return f
 
 
 # ---------------------------------------------------------------------------
@@ -292,46 +375,86 @@ def fine_kernels(fine_kernel: str) -> Tuple[Callable, Callable]:
 
 
 # ---------------------------------------------------------------------------
-# Cached-Ke apply (replaces pallas_kernels.apply_k_pallas_cached)
+# Cached-level apply from an assembled node stencil (replaces
+# pallas_kernels.apply_k_pallas_cached and its ke_stream_layout)
 # ---------------------------------------------------------------------------
 
-def ke_stream_layout(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
-    """(dims..., d_pe, d_pe) stack -> the coefficient-major stream layout
-    (nx, d_pe^2, R), R = prod(dims[1:]) (``pallas_kernels.ke_stream_layout``)."""
-    d_pe = grid.nodes_per_elem * grid.ndim
-    R = grid.num_elements // grid.dims[0]
-    ke = Ke.reshape(grid.dims[0], R, d_pe * d_pe)
-    return ke.transpose(1, 2).contiguous()
+def stencil_offsets(ndim: int):
+    """The 3^N neighbour offsets of a node stencil, C order over
+    (-1, 0, 1)^N."""
+    return list(itertools.product((-1, 0, 1), repeat=ndim))
 
 
-def ke_from_stream(ke_stream: torch.Tensor, grid: Grid) -> torch.Tensor:
-    """Inverse of :func:`ke_stream_layout`."""
-    d_pe = grid.nodes_per_elem * grid.ndim
-    return ke_stream.transpose(1, 2).reshape(grid.dims + (d_pe, d_pe))
+def stencil_shape(grid: Grid) -> Tuple[int, ...]:
+    """(3^N, N, N) + node dims: slot (o, c, d) of node n is the coupling
+    K[(n, c), (n + offset o, d)], slot-major so that neighbouring nodes
+    of one slot lie at neighbouring addresses."""
+    N = grid.ndim
+    return (3 ** N, N, N) + grid.nodes_per_dim
 
 
-def apply_k_cached_f32_plain(u, ke_stream, grid: Grid) -> torch.Tensor:
-    """Plain twin of :func:`apply_k_cached_f32`."""
-    return ops.apply_k_cached(u, ke_from_stream(ke_stream, grid), grid)
+def cached_stencil_plain(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """Plain twin of :func:`cached_stencil`: the node stencil of the
+    assembled K of a per-element stack ``Ke`` (dims + (d_pe, d_pe)), as
+    slice adds of its N x N blocks, local node a outermost (the order in
+    which the kernel sums each slot)."""
+    N = grid.ndim
+    offs = stencil_offsets(N)
+    local = list(itertools.product((0, 1), repeat=N))
+    S = Ke.new_zeros(stencil_shape(grid))
+    for a, ab in enumerate(local):
+        rows = tuple(slice(o, o + n) for o, n in zip(ab, grid.dims))
+        for b, bb in enumerate(local):
+            o = offs.index(tuple(y - x for x, y in zip(ab, bb)))
+            block = Ke[..., a * N:(a + 1) * N, b * N:(b + 1) * N]
+            S[(o, slice(None), slice(None)) + rows] += block.movedim((-2, -1), (0, 1))
+    return S
 
 
-def apply_k_cached_f32(u: torch.Tensor, ke_stream: torch.Tensor,
-                       grid: Grid) -> torch.Tensor:
-    """f = sum_e scatter(Ke_e gather_e(u)) in fp32 from a
-    :func:`ke_stream_layout` stack."""
-    if not _on_cuda(u):
-        return apply_k_cached_f32_plain(u, ke_stream, grid)
+def cached_stencil(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """The node stencil (:func:`stencil_shape`, fp32) of a cached level
+    from its per-element fp32 stack ``Ke`` (dims + (d_pe, d_pe))."""
+    if not _on_cuda(Ke):
+        return cached_stencil_plain(Ke, grid)
     _check_grid(grid)
     d_pe = grid.nodes_per_elem * grid.ndim
-    R = grid.num_elements // grid.dims[0]
+    _check("Ke", Ke, torch.float32, grid.dims + (d_pe, d_pe), Ke.device)
+    lib = _library()
+    S = torch.empty(stencil_shape(grid), dtype=torch.float32, device=Ke.device)
+    with torch.cuda.device(Ke.device):
+        code = lib.ndr_cached_stencil_f32(Ke.data_ptr(), S.data_ptr(), grid.ndim,
+                                          *_dims3(grid), _stream(Ke.device))
+    _check_launch(code, "cached_stencil")
+    launches["cached_stencil"] += 1
+    return S
+
+
+def apply_k_cached_f32_plain(u, stencil, grid: Grid) -> torch.Tensor:
+    """Plain twin of :func:`apply_k_cached_f32`: f[n] = sum over offsets
+    o of S[o] u[n + o], u zero-padded by one node on every side."""
+    N = grid.ndim
+    up = torch.nn.functional.pad(u, (0, 0) + (1, 1) * N)
+    f = torch.zeros_like(u)
+    for o, off in enumerate(stencil_offsets(N)):
+        nb = tuple(slice(1 + k, 1 + k + n) for k, n in zip(off, grid.nodes_per_dim))
+        f += torch.einsum("cd...,...d->...c", stencil[o], up[nb])
+    return f
+
+
+def apply_k_cached_f32(u: torch.Tensor, stencil: torch.Tensor,
+                       grid: Grid) -> torch.Tensor:
+    """f = K u in fp32 from a cached level's node stencil
+    (:func:`cached_stencil`)."""
+    if not _on_cuda(u):
+        return apply_k_cached_f32_plain(u, stencil, grid)
+    _check_grid(grid)
     _check("u", u, torch.float32, grid.nodes_per_dim + (grid.ndim,), u.device)
-    _check("ke_stream", ke_stream, torch.float32,
-           (grid.dims[0], d_pe * d_pe, R), u.device)
+    _check("stencil", stencil, torch.float32, stencil_shape(grid), u.device)
     lib = _library()
     f = torch.empty_like(u)
     with torch.cuda.device(u.device):
         code = lib.ndr_apply_k_cached_f32(
-            u.data_ptr(), ke_stream.data_ptr(), f.data_ptr(),
+            u.data_ptr(), stencil.data_ptr(), f.data_ptr(),
             grid.ndim, *_dims3(grid), _stream(u.device))
     _check_launch(code, "apply_k_cached_f32")
     launches["apply_k_cached_f32"] += 1

@@ -9,7 +9,8 @@ coarsest solve, and float64 iterative refinement around fp32 MGPCG.
 
 On CUDA with kernels on, the fine level applies K through the fp32 fine
 kernel, every non-coarsest cached level through
-:func:`kernels.apply_k_cached_f32` on the stream layout, and the
+:func:`kernels.apply_k_cached_f32` from its node stencil (assembled once
+per hierarchy build by :func:`kernels.cached_stencil`), and the
 refinement's true residual through the float64 fine kernel. Which fine
 kernels (node- or element-centric) is the ``fine_kernel`` setting, with
 the JAX package's dispatch (:func:`kernels.fine_kernels`).
@@ -327,22 +328,23 @@ class LevelState:
     """Per-level operators for one density configuration.
 
     kind "fine": matrix-free apply from the SIMP modulus field;
-    kind "cached": per-element Galerkin Ke materialized — as ``Ke``
-    (dims..., d, d), or, where the cached-Ke kernel serves the level, only
-    as ``Ke_stream`` in :func:`kernels.ke_stream_layout` (never both: the
-    stack is the level's largest array).
+    kind "cached": the Galerkin operator materialized — as the
+    per-element stack ``Ke`` (dims..., d, d), or, where the cached-level
+    kernel serves the level, only as the assembled node ``stencil``
+    (:func:`kernels.stencil_shape`, 3^N N^2 values per node; never both:
+    either is the level's largest array).
     """
 
     grid: Grid
     dirichlet_mask: torch.Tensor
     young: Optional[torch.Tensor]       # level 0 only
-    Ke: Optional[torch.Tensor]          # cached levels without a stream
+    Ke: Optional[torch.Tensor]          # cached levels without a stencil
     Minv_rows: torch.Tensor             # nodes + (N, N) diag blocks of K
     K0: Optional[torch.Tensor]          # level 0 only, in young's dtype
     Dinv: Optional[torch.Tensor] = None
     lmax: Optional[float] = None
     kind: str = "cached"
-    Ke_stream: Optional[torch.Tensor] = None
+    stencil: Optional[torch.Tensor] = None
     # level 0 with kernels: the fp32 apply and the float64 residual's apply
     # that the ``fine_kernel`` setting names (kernels.fine_kernels)
     fine_apply: Optional[Callable] = None
@@ -354,8 +356,8 @@ def _apply_k_level(lv: LevelState, u: torch.Tensor) -> torch.Tensor:
         if lv.fine_apply is not None:
             return lv.fine_apply(u, lv.young, lv.K0, lv.grid)
         return ops.apply_k(u, lv.young, lv.K0, lv.grid)
-    if lv.Ke_stream is not None:
-        return kernels.apply_k_cached_f32(u, lv.Ke_stream, lv.grid)
+    if lv.stencil is not None:
+        return kernels.apply_k_cached_f32(u, lv.stencil, lv.grid)
     return ops.apply_k_cached(u, lv.Ke, lv.grid)
 
 
@@ -397,7 +399,7 @@ def build_level_states(
         if kind == "transfer":
             raise NotImplementedError(
                 f"level {l} Ke exceeds ke_cache_limit_bytes: {_TODO_TRANSFER}")
-        Ke = Ke_stream = None
+        Ke = stencil = None
         if l == 0:
             M = ops.node_diag_blocks(young, prob.K0, lev.grid)
         else:
@@ -409,7 +411,8 @@ def build_level_states(
             M = ops.node_diag_blocks_cached(Ke, lev.grid)
             prev_ke = Ke
             if use_kernels and l != last:
-                Ke_stream = kernels.ke_stream_layout(Ke, lev.grid)
+                # prev_ke keeps the stack for the next level's coarsen_ke
+                stencil = kernels.cached_stencil(Ke.contiguous(), lev.grid)
                 Ke = None
         states.append(
             LevelState(
@@ -420,7 +423,7 @@ def build_level_states(
                 Minv_rows=M,
                 K0=prob.K0.to(young.dtype) if l == 0 else None,
                 kind=kind,
-                Ke_stream=Ke_stream,
+                stencil=stencil,
                 fine_apply=apply32 if use_kernels and l == 0 else None,
                 fine_apply64=apply64 if use_kernels and l == 0 else None,
             )
@@ -624,9 +627,10 @@ class MGSolverSettings:
     # coarsest solve: "cholesky", "ns" or "auto" (ns for fp32
     # hierarchies up to NS_AUTO_MAX_DOFS, else cholesky)
     coarse_solver: str = "auto"
-    # fine-level kernels with use_kernels: "flat32" (node-centric fp32 and
-    # f64), "variant" (element-centric fp32) or "flat" (element-centric
-    # f64 residual); the JAX package's NDR_FINE_KERNEL switch
+    # fine-level kernels with use_kernels: "flat32" (apply_k_fine_f32.cu's
+    # fp32 apply, node-centric f64 residual), "variant" (element-centric
+    # fp32) or "flat" (element-centric f64 residual); the JAX package's
+    # NDR_FINE_KERNEL switch
     fine_kernel: str = "flat32"
 
 

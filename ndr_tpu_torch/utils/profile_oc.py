@@ -39,6 +39,11 @@ from ndr_tpu_torch.utils.torch_setup import resolve_device, setup
 
 WARMUP = 2
 TOP_OPS = 16
+#: Name stems of the port's own CUDA kernels (``ndr_tpu_torch/csrc/``),
+#: reported whether or not they are among the top device ops.
+PORT_KERNELS = ("apply_k_fine_stream_kernel", "cached_apply_kernel",
+                "cached_stencil_kernel", "apply_k_fine_kernel",
+                "apply_k_elem_partials", "sum_elem_partials")
 
 #: (label, owner, attribute) of each synchronized section.
 SECTIONS = (
@@ -92,7 +97,7 @@ def report(tag: str, unit: str, sections, seconds, calls, steps: int, synced,
     for label, *_ in sections:
         print(f"{tag}   {label:40s} {1e3 * seconds[label] / steps:9.2f} ms/step"
               f"  ({calls[label] / steps:.1f} calls/step)")
-    busy, n_ops, top = device_summary(prof)
+    busy, n_ops, top, port = device_summary(prof)
     if n_ops == 0:
         print(f"{tag} traced step wall {1e3 * wall:.1f} ms; device time not "
               "measured (the trace holds no device events)")
@@ -102,11 +107,14 @@ def report(tag: str, unit: str, sections, seconds, calls, steps: int, synced,
           f"{n_ops} device ops")
     for name, s, count in top:
         print(f"{tag}   {name[:72]:72s} {1e3 * s:8.2f} ms  x{count}")
+    for name, s, count in port:
+        print(f"{tag} port kernel {name[:60]:60s} {1e3 * s:8.2f} ms  x{count}")
 
 
 def device_summary(prof):
-    """(busy seconds, device op count, [(name, seconds, count)] top ops)
-    of the device events in a ``torch.profiler`` trace."""
+    """(busy seconds, device op count, [(name, seconds, count)] of the top
+    ops, the same for the port's kernels) of the device events in a
+    ``torch.profiler`` trace."""
     by_name = defaultdict(lambda: [0.0, 0])
     busy, n = 0.0, 0
     for e in prof.events():
@@ -117,9 +125,9 @@ def device_summary(prof):
         n += 1
         by_name[e.name][0] += s
         by_name[e.name][1] += 1
-    top = sorted(((k, v[0], v[1]) for k, v in by_name.items()),
-                 key=lambda t: -t[1])[:TOP_OPS]
-    return busy, n, top
+    ops = sorted(((k, v[0], v[1]) for k, v in by_name.items()), key=lambda t: -t[1])
+    port = [op for op in ops if any(stem in op[0] for stem in PORT_KERNELS)]
+    return busy, n, ops[:TOP_OPS], port
 
 
 def profile(cfg, dims, mgl: int, steps: int, kernels: str, device):

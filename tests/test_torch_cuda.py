@@ -29,6 +29,8 @@ CASES = [
     ("problems/3d/cantilever_flexion.json", (8, 4, 4)),
     ("problems/3d/cantilever_flexion.json", (6, 4, 2)),
     ("problems/3d/cantilever_flexion.json", (32, 16, 16)),
+    ("problems/3d/bridge.json", (13, 7, 5)),
+    ("problems/3d/bridge.json", (64, 32, 16)),
 ]
 
 
@@ -68,25 +70,37 @@ def test_fine_kernels_match_twins(device, prob_path, dims):
         assert _rel(f32, ref32) < 1e-5
         assert _rel(f64, ref64) < 1e-12
     assert kernels.launches == {"apply_k_fine_f32": 1, "apply_k_fine_elem_f32": 1,
-                                "apply_k_cached_f32": 0, "apply_k_fine_f64": 1,
-                                "apply_k_fine_elem_f64": 1}
+                                "apply_k_cached_f32": 0, "cached_stencil": 0,
+                                "apply_k_fine_f64": 1, "apply_k_fine_elem_f64": 1}
 
 
 @pytest.mark.parametrize("prob_path,dims", CASES)
 def test_cached_kernel_matches_twin(device, prob_path, dims):
+    """Stencil assembly and cached apply on a random stack on the grid
+    itself (any shape) and on the Galerkin level-1 stack where the grid
+    coarsens. The assembly sums each slot in its twin's order."""
     prob, grid = problem_from_config(load_problem(prob_path), dims=dims,
                                      dtype=torch.float32, device=device)
-    cfg = mg.build_mg_config(prob, 1)
     rng = np.random.default_rng(3)
-    young = prob.young(torch.tensor(rng.uniform(0.1, 1.0, grid.dims),
-                                    dtype=torch.float32, device=device))
-    grid1 = cfg.levels[1].grid
-    stream = kernels.ke_stream_layout(mg.build_level_ke(cfg, young, 1), grid1)
-    u = torch.tensor(rng.standard_normal(grid1.nodes_per_dim + (grid1.ndim,)),
-                     dtype=torch.float32, device=device)
-    f = kernels.apply_k_cached_f32(u, stream, grid1)
-    torch.cuda.synchronize()
-    assert _rel(f, kernels.apply_k_cached_f32_plain(u, stream, grid1)) < 1e-5
+    d = grid.nodes_per_elem * grid.ndim
+    stacks = [(grid, torch.tensor(rng.standard_normal(grid.dims + (d, d)),
+                                  dtype=torch.float32, device=device))]
+    if mg.max_feasible_coarsenings(grid):
+        cfg = mg.build_mg_config(prob, 1)
+        young = prob.young(torch.tensor(rng.uniform(0.1, 1.0, grid.dims),
+                                        dtype=torch.float32, device=device))
+        stacks.append((cfg.levels[1].grid, mg.build_level_ke(cfg, young, 1)))
+    kernels.reset_launches()
+    for g, Ke in stacks:
+        stencil = kernels.cached_stencil(Ke, g)
+        u = torch.tensor(rng.standard_normal(g.nodes_per_dim + (g.ndim,)),
+                         dtype=torch.float32, device=device)
+        f = kernels.apply_k_cached_f32(u, stencil, g)
+        torch.cuda.synchronize()
+        assert _rel(stencil, kernels.cached_stencil_plain(Ke, g)) < 1e-5
+        assert _rel(f, kernels.apply_k_cached_f32_plain(u, stencil, g)) < 1e-5
+    assert kernels.launches["cached_stencil"] == len(stacks)
+    assert kernels.launches["apply_k_cached_f32"] == len(stacks)
 
 
 def test_kernels_refuse_f64_hierarchy(device):
@@ -151,6 +165,12 @@ def test_wrappers_refuse_bad_inputs(device):
         kernels.apply_k_fine_elem_f64(u, young.double(), K0.double(), grid)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.apply_k_fine_elem_f32(u, strided, K0, grid)
+    Ke = torch.zeros(grid.dims + (24, 24), device=device)
+    with pytest.raises(TypeError):
+        kernels.cached_stencil(Ke.double(), grid)
+    stencil = kernels.cached_stencil(Ke, grid)
+    with pytest.raises(ValueError):
+        kernels.apply_k_cached_f32(u, stencil[:-1], grid)
 
 
 @pytest.mark.parametrize("fine_kernel,fine32,fine64", [
@@ -167,7 +187,8 @@ def test_neural_two_steps_on_card(device, tmp_path, fine_kernel, fine32, fine64)
     kernels.reset_launches()
     on = train_xdg.main(base + ["--jid", "on", "--fine-kernel", fine_kernel])
     counts = dict(kernels.launches)
-    assert counts[fine32] > 0 and counts[fine64] > 0 and counts["apply_k_cached_f32"] > 0
+    assert counts[fine32] > 0 and counts[fine64] > 0
+    assert counts["apply_k_cached_f32"] > 0 and counts["cached_stencil"] > 0
     off = train_xdg.main(base + ["--jid", "off", "--kernels", "off"])
     assert np.isfinite(on.history).all() and np.isfinite(on.final_compliance)
     assert abs(on.history[0] - off.history[0]) < 1e-4 * abs(off.history[0])

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from ndr_tpu.fem import multigrid as jmg
+from ndr_tpu.fem import operators as jops
 from ndr_tpu.fem import pallas_kernels as pk
 from ndr_tpu.fem.simulator import problem_from_config as j_problem_from_config
 from ndr_tpu.io.problem import load_problem
@@ -63,7 +64,9 @@ def test_fine_f32_twin_matches_pallas_flat(prob_path, dims):
 
 @pytest.mark.parametrize("prob_path,dims", SLOW_CASES)
 def test_cached_f32_twin_matches_pallas_cached(prob_path, dims):
-    """On a real Galerkin level-1 Ke stack, in the stream layout."""
+    """On a real Galerkin level-1 Ke stack: the port's node stencil
+    (assembly twin, then apply twin) against the Pallas kernel on its
+    stream layout."""
     prob, grid, rng = _setup(prob_path, dims, jnp.float32, 3)
     mgcfg = jmg.build_mg_config(prob, 1)
     young = prob.young(jnp.asarray(rng.uniform(0.1, 1.0, grid.dims), jnp.float32))
@@ -73,12 +76,35 @@ def test_cached_f32_twin_matches_pallas_cached(prob_path, dims):
     ref = pk.apply_k_pallas_cached(jnp.asarray(u), pk.ke_stream_layout(Ke1, grid1),
                                    grid1, interpret=True)
     tgrid1 = _port_grid(grid1)
-    stream = kernels.ke_stream_layout(torch.tensor(np.asarray(Ke1)), tgrid1)
-    np.testing.assert_array_equal(stream.numpy(),
-                                  np.asarray(pk.ke_stream_layout(Ke1, grid1)))
-    out = kernels.apply_k_cached_f32_plain(torch.tensor(u), stream, tgrid1)
+    stencil = kernels.cached_stencil_plain(torch.tensor(np.asarray(Ke1)), tgrid1)
+    assert stencil.shape == kernels.stencil_shape(tgrid1)
+    out = kernels.apply_k_cached_f32_plain(torch.tensor(u), stencil, tgrid1)
     assert out.dtype == torch.float32
     assert _rel(out, ref) < 1e-5
+
+
+@pytest.mark.parametrize("prob_path,dims", CASES)
+def test_cached_stencil_twin_matches_apply_k_cached(prob_path, dims):
+    """The stencil assembly twin, applied by the apply twin, against the
+    JAX ``operators.apply_k_cached`` on a random non-symmetric stack (a
+    swapped row and column block would show), in float64: the same K up
+    to rounding. Entries of a slot whose neighbour lies outside the grid
+    are zero."""
+    _, jgrid, rng = _setup(prob_path, dims, jnp.float64, 6)
+    grid = _port_grid(jgrid)
+    d = grid.nodes_per_elem * grid.ndim
+    Ke = rng.standard_normal(grid.dims + (d, d))
+    u = rng.standard_normal(grid.nodes_per_dim + (grid.ndim,))
+    ref = jops.apply_k_cached(jnp.asarray(u), jnp.asarray(Ke), jgrid)
+    stencil = kernels.cached_stencil_plain(torch.tensor(Ke), grid)
+    out = kernels.apply_k_cached_f32_plain(torch.tensor(u), stencil, grid)
+    assert _rel(out, ref) < 1e-12
+    for o, off in enumerate(kernels.stencil_offsets(grid.ndim)):
+        for axis, k in enumerate(off):
+            if k:  # the first (k = -1) or last (k = +1) node plane has no neighbour
+                edge = 0 if k < 0 else grid.nodes_per_dim[axis] - 1
+                plane = stencil[o].select(2 + axis, edge)
+                assert torch.count_nonzero(plane) == 0
 
 
 @pytest.mark.parametrize("prob_path,dims", SLOW_CASES)
@@ -102,6 +128,47 @@ def test_fine_f64_twin_matches_pallas_df(prob_path, dims):
     assert _rel(out, ref) < 2e-10
 
 
+def _reflection_apply(B: torch.Tensor, U: torch.Tensor, ndim: int) -> torch.Tensor:
+    """K0 U for element DOF columns U (d_pe, E) as the fp32 fine kernel
+    computes it: Walsh-Hadamard transform over the element's nodes, the
+    2^N reflection blocks, the transform back (B carries the 1/2^N)."""
+    npe = 1 << ndim
+    V = U.reshape(npe, ndim, -1)
+    sign = torch.tensor([[(-1.0) ** bin(t & b).count("1") for b in range(npe)]
+                         for t in range(npe)], dtype=U.dtype)
+    Vh = torch.einsum("tb,bde->tde", sign, V)
+    Wh = torch.zeros_like(Vh)
+    for s in range(npe):
+        for c in range(ndim):
+            for d in range(ndim):
+                Wh[s ^ (1 << (ndim - 1 - c)), c] += B[s, c, d] * Vh[s ^ (1 << (ndim - 1 - d)), d]
+    return torch.einsum("tb,tde->bde", sign, Wh).reshape(npe * ndim, -1)
+
+
+@pytest.mark.parametrize("prob_path,dims", CASES + [("problems/3d/bridge.json", (13, 7, 5))])
+def test_reflection_blocks_reproduce_k0(prob_path, dims):
+    """The fp32 fine kernel's block form of K0 (non-cubic voxels too)
+    reproduces K0 u_e to the fp32 rounding of its blocks."""
+    prob, grid, rng = _setup(prob_path, dims, jnp.float64, 7)
+    K0 = torch.tensor(np.asarray(prob.K0))
+    B = kernels.reflection_blocks(K0, grid.ndim)
+    assert B.dtype == torch.float32 and B.shape == (grid.nodes_per_elem, grid.ndim, grid.ndim)
+    U = torch.tensor(rng.standard_normal((K0.shape[0], 64)))
+    ref = K0 @ U
+    out = _reflection_apply(B.double(), U, grid.ndim)
+    assert float((out - ref).abs().max() / ref.abs().max()) < 1e-6
+
+
+def test_reflection_blocks_refuse_other_k0():
+    """A K0 that the element's reflections do not leave invariant (one
+    coupling changed) has no block form: the fp32 fine kernel refuses it."""
+    prob, grid, _ = _setup(*CASES[1], jnp.float64, 8)
+    K0 = torch.tensor(np.asarray(prob.K0))
+    K0[0, 5] += 1e-3 * float(K0.abs().max())
+    with pytest.raises(ValueError, match="reflections"):
+        kernels.reflection_blocks(K0, grid.ndim)
+
+
 @pytest.mark.parametrize("prob_path,dims", CASES)
 def test_wrappers_take_twins_on_cpu(prob_path, dims):
     """A CPU tensor goes to the plain twin: same result, no launch."""
@@ -112,23 +179,22 @@ def test_wrappers_take_twins_on_cpu(prob_path, dims):
     u = rng.standard_normal(grid.nodes_per_dim + (grid.ndim,))
     K0 = np.asarray(prob.K0)
     d = K0.shape[0]
-    Ke = rng.standard_normal(grid.dims + (d, d))
-    stream = kernels.ke_stream_layout(T(Ke, torch.float32), grid)
+    Ke = T(rng.standard_normal(grid.dims + (d, d)), torch.float32)
     kernels.reset_launches()
+    stencil = kernels.cached_stencil(Ke, grid)
+    torch.testing.assert_close(stencil, kernels.cached_stencil_plain(Ke, grid),
+                               rtol=0, atol=0)
     for f32, plain, args in [
         (kernels.apply_k_fine_f32, kernels.apply_k_fine_plain,
          (T(u, torch.float32), T(young, torch.float32), T(K0, torch.float32))),
         (kernels.apply_k_fine_f64, kernels.apply_k_fine_plain,
          (T(u, torch.float64), T(young, torch.float64), T(K0, torch.float64))),
         (kernels.apply_k_cached_f32, kernels.apply_k_cached_f32_plain,
-         (T(u, torch.float32), stream)),
+         (T(u, torch.float32), stencil)),
     ]:
         torch.testing.assert_close(f32(*args, grid), plain(*args, grid),
                                    rtol=0, atol=0)
     assert kernels.launches == {name: 0 for name in kernels.launches}
-    # the stream layout round-trips
-    torch.testing.assert_close(kernels.ke_from_stream(stream, grid),
-                               T(Ke, torch.float32), rtol=0, atol=0)
 
 
 def test_wrapper_refuses_other_devices():
