@@ -5,9 +5,11 @@
 Builds the hand-written CUDA kernels from ``ndr_tpu_torch/csrc/`` (one
 for each Pallas kernel, and the cached levels' stencil assembly), holds
 each against its plain PyTorch twin on the card (at the test shapes and
-at the shapes the paths below give it) and times each at 192x96x96
-beside its bound, its twin and one library call (cuSPARSE CSR SpMV on
-the assembled K). Then it drives the port's paths through their CLIs,
+at the shapes the paths below give it; the stencil assembly bitwise) and
+times each where the paths launch it, at 192x96x96 and at the bench grid
+64x32x16 (the cached kernels: the Galerkin levels of those grids), beside
+its bound, its twin and one library call (cuSPARSE CSR SpMV on the
+assembled K). Then it drives the port's paths through their CLIs,
 each with the launch counters set to 0 just before and read just after:
 
   1. classic SIMP-OC (``train_voxelfem``), cantilever 192x96x96, mgl=3,
@@ -53,10 +55,15 @@ BENCH_GRID = (64, 32, 16)
 NEURAL_STEPS = 4
 BENCH_STEPS = 10
 # small shapes of tests/test_pallas.py, then the paths' own fine grids
+# (37x21, 37x19x23, 9x5x1: dims that are no multiple of the fp32 kernels'
+# tiles or slabs, a one-element-thick 3-D grid)
 TEST_SHAPES = [("problems/2d/mbb_beam.json", (12, 6)),
                ("problems/2d/mbb_beam.json", (10, 7)),
+               ("problems/2d/mbb_beam.json", (37, 21)),
                ("problems/3d/cantilever_flexion.json", (8, 4, 4)),
                ("problems/3d/cantilever_flexion.json", (6, 4, 2)),
+               (BRIDGE, (37, 19, 23)),
+               (BRIDGE, (9, 5, 1)),
                (BRIDGE, BENCH_GRID)]
 TOL_F32 = 1e-5      # max|f - f_twin| / max|f_twin|: summation order differs
 TOL_F64 = 1e-12
@@ -71,7 +78,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 FINE = {  # wrapper -> (source, replaced TPU kernel, dtype)
     "apply_k_fine_f32": ("ndr_tpu_torch/csrc/apply_k_fine_f32.cu",
                          "ndr_tpu/fem/pallas_kernels.py:395", torch.float32),
-    "apply_k_fine_elem_f32": ("ndr_tpu_torch/csrc/apply_k_fine_elem.cu",
+    "apply_k_fine_elem_f32": ("ndr_tpu_torch/csrc/apply_k_fine_elem_f32.cu",
                               "ndr_tpu/fem/pallas_kernels.py:238", torch.float32),
     "apply_k_fine_f64": ("ndr_tpu_torch/csrc/apply_k_fine.cu",
                          "ndr_tpu/fem/pallas_kernels.py:636", torch.float64),
@@ -223,9 +230,10 @@ def phase_build(m):
 
 def phase_kernels(m):
     """Each kernel against its twin at the test shapes and the paths'
-    shapes; at 192x96x96 (cached apply and stencil assembly: its levels 1
-    and 2) each is timed beside its bound, its twin and, for the applies,
-    the CSR SpMV. Returns (worst abs error, records)."""
+    shapes; at 192x96x96 and 64x32x16 (cached apply and stencil assembly:
+    the levels of their hierarchies) each is timed beside its bound, its
+    twin and, for the applies, the CSR SpMV. Returns (worst abs error,
+    records)."""
     import numpy as np
 
     kernels = m.kernels
@@ -238,8 +246,11 @@ def phase_kernels(m):
         torch.cuda.synchronize()
         ref = plain(*args, grid)
         abs_err, rel_err = errors(out, ref)
-        check(math.isfinite(rel_err) and rel_err < tol,
-              f"{name} at {label}: rel err {rel_err:.3e} >= {tol:g}")
+        if tol == 0:
+            check(torch.equal(out, ref), f"{name} at {label}: not bitwise equal, "
+                                         f"rel err {rel_err:.3e}")
+        check(math.isfinite(rel_err) and rel_err <= tol,
+              f"{name} at {label}: rel err {rel_err:.3e} > {tol:g}")
         worst[name] = max(worst[name], abs_err)
         line = f"{name:22s} {label:30s} max|d| {abs_err:.3e}  rel {rel_err:.3e}"
         if cost is not None:
@@ -272,7 +283,7 @@ def phase_kernels(m):
         nn, ne = g.num_nodes, g.num_elements
         slots = 3 ** N * N * N
         S = run("cached_stencil", kernels.cached_stencil, kernels.cached_stencil_plain,
-                (ke,), g, TOL_F32, label,
+                (ke,), g, 0, label,
                 cost=(4 * d * d * ne + 4 * slots * nn, d * d * ne, torch.float32)
                 if timed else None)
         ul = torch.tensor(rng.standard_normal(g.nodes_per_dim + (N,)),
@@ -290,7 +301,7 @@ def phase_kernels(m):
 
     rng = np.random.default_rng(0)
     for prob_path, dims in TEST_SHAPES + [(PROB, GRID)]:
-        timed = dims == GRID
+        timed = dims in (GRID, BENCH_GRID)
         prob, grid = m.simulator.problem_from_config(
             m.problem.load_problem(prob_path), dims=dims, device=dev)
         rho = torch.tensor(rng.uniform(1e-3, 1.0, grid.dims), device=dev)
@@ -316,28 +327,38 @@ def phase_kernels(m):
             npe = grid.nodes_per_elem
             L = npe.bit_length() - 1
             # operations of the kernel's design: dense K0 (and the young
-            # scale), or for apply_k_fine_f32 the reflection basis: the two
-            # transforms (in 3-D the lower node plane's is carried from the
-            # previous element), 2^N N x N blocks, the young scale fused with
-            # the carried forces
+            # scale), or for the two fp32 kernels the reflection basis: the
+            # two transforms (in 3-D the lower node plane's is carried from
+            # the previous element), 2^N N x N blocks, the young scale fused
+            # with the carried forces
+            dense_flops = ne * (2 * d * d + d)
             flops = (ne * (2 * d * L - (d if N == 3 else 0) + 2 * npe * N * N + 2 * d)
-                     if name == "apply_k_fine_f32" else ne * (2 * d * d + d))
+                     if dt == torch.float32 else dense_flops)
+            io_bytes = 2 * N * nn * b + ne * b
+
             run(name, getattr(kernels, name), kernels.apply_k_fine_plain, args, grid,
-                tol, f"fine {dims}",
-                cost=(2 * N * nn * b + ne * b, flops, dt) if timed else None,
+                tol, f"fine {dims}", cost=(io_bytes, flops, dt) if timed else None,
                 library=library if timed else None)
-            if timed and name == "apply_k_fine_f32":
-                dense = bound(2 * N * nn * b + ne * b, ne * (2 * d * d + d), dt)
+            if timed and dt == torch.float32:
+                dense = bound(io_bytes, dense_flops, dt)
                 print(f"    bound with the dense K0 contraction: {dense[0]:.4f} ms "
-                      f"by {dense[1]} ({ne * (2 * d * d + d) / 1e9:.2f} GFLOP)")
+                      f"by {dense[1]} ({dense_flops / 1e9:.2f} GFLOP)")
+            if timed and name == "apply_k_fine_elem_f32":
+                # not in its bound: the function needs only u, young and f
+                slab, ty, tz, n_slots = kernels.elem_geometry(grid, dev)
+                scratch = 4 * N * n_slots
+                print(f"    its design also moves a face-partials scratch of "
+                      f"{scratch / 1e6:.1f} MB (slab {slab}, tile {ty}x{tz}), "
+                      f"at most once each way: <= {(io_bytes + 2 * scratch) / 1e6:.1f} MB")
         if not timed:  # a random stack on the grid itself (any shape, coarsenable or not)
             ke = torch.tensor(rng.standard_normal(grid.dims + (d, d)),
                               dtype=torch.float32, device=dev)
             cached(ke, grid, f"random Ke {dims}", False)
 
         # the Galerkin levels of this grid's hierarchy, built as the solver
-        # builds them (level 1 direct, deeper levels recursive)
-        nl = MGL if timed else min(1, m.mg.max_feasible_coarsenings(grid))
+        # builds them (level 1 direct, deeper levels recursive); the paths
+        # run 192x96x96 with mgl=3 and 64x32x16 with mgl=2
+        nl = {GRID: MGL, BENCH_GRID: 2}.get(dims, min(1, m.mg.max_feasible_coarsenings(grid)))
         cfg = m.mg.build_mg_config(prob, nl)
         ke = m.mg.build_level_ke(cfg, young.float(), 1) if nl else None
         for l in range(1, nl + 1):
@@ -473,7 +494,7 @@ def main():
     phase_environment()
     print("== 2. build")
     phase_build(m)
-    print("== 3. kernels against their twins; times at 192x96x96")
+    print("== 3. kernels against their twins; times at 192x96x96 and 64x32x16")
     worst, records = phase_kernels(m)
 
     shutil.rmtree(OUT_DIR, ignore_errors=True)
@@ -537,15 +558,19 @@ def main():
     for line in timings:
         print(line)
     out = []
+    main = (f"fine {GRID}", "level 1 (96, 48, 48)")
     for name in ("apply_k_fine_f32", "apply_k_fine_elem_f32", "apply_k_cached_f32",
                  "cached_stencil", "apply_k_fine_f64", "apply_k_fine_elem_f64"):
         src, rep = CACHED[name] if name in CACHED else FINE[name][:2]
-        r = records[name][0]  # fine: 192x96x96; cached and stencil: level 1
+        # top level: 192x96x96 (cached kernels: its level 1); "shapes": every
+        # timed shape, the bench grid's and level 2 included
+        r = next(r for r in records[name] if r["shape"] in main)
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         out.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                     "launches": total[name], "max_abs_err": worst[name],
-                    "ms": r["ms"], "plain_ms": r["plain_ms"],
-                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                    "library_ms": r["library_ms"]})
+                    **{k: r[k] for k in keys},
+                    "shapes": [{"shape": x["shape"], **{k: x[k] for k in keys}}
+                               for x in records[name]]})
     print(json.dumps({"kernels": out}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

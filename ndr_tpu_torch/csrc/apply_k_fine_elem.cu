@@ -1,17 +1,12 @@
-// Element-centric fine-level stiffness apply  f = K(E) u  for degree-1
-// voxel grids, in fp32 and in float64. One templated pair of kernels, two
-// C entry points.
+// Element-centric fine-level float64 stiffness apply  f = K(E) u  for
+// degree-1 voxel grids.
 //
-// Replaces, in ndr_tpu/fem/pallas_kernels.py:
-//   - ndr_apply_k_fine_elem_f32: apply_k_pallas (the "variant" fine kernel
-//     of apply_k_pallas_fine). It walks x-slabs, computes each element's
-//     (2^N N)^2 contraction once, scaled by E_e, and writes one partial
-//     force field per trailing node offset, which _stitch_partials sums.
-//   - ndr_apply_k_fine_elem_f64: apply_k_pallas_df_flat (the "flat" float64
-//     residual of apply_k_pallas_df_fine), the same function on the TPU's
-//     flat layout, built from fp32 hi/lo pairs because the TPU has no
-//     FP64. Hopper has FP64, so this is the fp32 kernel's template in
-//     double: float64 u, young, K0 in, float64 f out, no split.
+// Replaces, in ndr_tpu/fem/pallas_kernels.py: apply_k_pallas_df_flat (the
+// "flat" float64 residual of apply_k_pallas_df_fine), built on the TPU
+// from fp32 hi/lo pairs because the TPU has no FP64. Hopper has FP64, so
+// this takes float64 u, young, K0 in and writes float64 f, no split. (The
+// fp32 element-centric kernel, apply_k_pallas's counterpart, is
+// apply_k_fine_elem_f32.cu.)
 //
 // Design, the TPU kernel's own: element-centric, deterministic, no
 // atomics. Pass 1 (apply_k_elem_partials): one thread per (x-slab, trailing
@@ -28,9 +23,9 @@
 // not carried over.
 //
 // Bound on Hopper: operations. Per element (2^N N)^2 FMAs (576 in 3-D) and
-// 2^N N scales, against ~28 B/node of u, young and f in fp32: 1.77M
-// elements at 192x96x96 need ~2.1 GFLOP (31 us at 67 TFLOP/s fp32) but
-// only 51 MB (15 us at 3.35 TB/s). The partials add ~4x the f field's bytes
+// 2^N N scales, against ~56 B/node of u, young and f in float64: 1.77M
+// elements at 192x96x96 need ~2.1 GFLOP (31 us at 67 TFLOP/s FP64) and
+// 101 MB (30 us at 3.35 TB/s). The partials add ~4x the f field's bytes
 // of traffic (written once, read once), which the node-centric kernel of
 // apply_k_fine.cu does not pay; in exchange each element's contraction is
 // done once instead of 2^N times.
@@ -38,13 +33,10 @@
 
 namespace {
 
-__constant__ float c_K0e_f32[24 * 24];
 __constant__ double c_K0e_f64[24 * 24];
 
 template <typename T>
 __device__ __forceinline__ T k0e(int i);
-template <>
-__device__ __forceinline__ float k0e<float>(int i) { return c_K0e_f32[i]; }
 template <>
 __device__ __forceinline__ double k0e<double>(int i) { return c_K0e_f64[i]; }
 
@@ -217,19 +209,10 @@ int launch_elem(const Symbol& c_K0, const void* u, const void* young,
 
 }  // namespace
 
-// u: nodes + (N,); young: dims; K0: (2^N N)^2 on the device, all fp32;
-// part: scratch of nslabs * (slab + 1) * 2^(N-1) * N * prod(dims[1:]) fp32,
-// nslabs = ceil(ex / slab); f: nodes + (N,) fp32, written in full.
-// Returns a cudaError_t code.
-extern "C" int ndr_apply_k_fine_elem_f32(const void* u, const void* young,
-                                         const void* K0, void* part, void* f,
-                                         int ndim, int ex, int ey, int ez,
-                                         int slab, void* stream) {
-  return launch_elem<float>(c_K0e_f32, u, young, K0, part, f, ndim, ex, ey,
-                            ez, slab, stream);
-}
-
-// As ndr_apply_k_fine_elem_f32, with every array float64.
+// u: nodes + (N,); young: dims; K0: (2^N N)^2 on the device, all float64;
+// part: scratch of nslabs * (slab + 1) * 2^(N-1) * N * prod(dims[1:])
+// float64, nslabs = ceil(ex / slab); f: nodes + (N,) float64, written in
+// full. Returns a cudaError_t code.
 extern "C" int ndr_apply_k_fine_elem_f64(const void* u, const void* young,
                                          const void* K0, void* part, void* f,
                                          int ndim, int ex, int ey, int ez,

@@ -53,12 +53,9 @@
 // (193x97x97, 65x33x17) waste few threads, and the chunk length so that the
 // blocks fill the card's SMs in whole waves. 2-D grids run as one plane with
 // an inactive x axis.
-#include <cuda_runtime.h>
+#include "reflection.cuh"
 
 namespace {
-
-// Reflection-basis blocks, B_s[c][d] / 2^N at ((s N + c) N + d).
-__constant__ float c_B[8 * 9];
 
 constexpr int kMaxThreads = 192;  // 128 and 256: 1-3% slower on 193x97x97 or 65x33x17
 constexpr int kMaxTZ = 15;  // nodes per z line of a column
@@ -76,40 +73,6 @@ struct Elem {
   static constexpr int NPE = 1 << NDIM;
   static constexpr int SLOTS = 4 * NDIM;  // forces per element column and node plane
 };
-
-// In-place Walsh-Hadamard transform over the bits `bits` of the local node
-// index of v[.][d].
-template <int N, int NB>
-__device__ __forceinline__ void wht(float (&v)[NB][N], int bits) {
-#pragma unroll
-  for (int bit = 1; bit < NB; bit <<= 1) {
-    if (!(bits & bit)) continue;
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      if (b & bit) continue;
-#pragma unroll
-      for (int d = 0; d < N; ++d) {
-        const float x = v[b][d], y = v[b | bit][d];
-        v[b][d] = x + y;
-        v[b | bit][d] = x - y;
-      }
-    }
-  }
-}
-
-// u of the four nodes of an element's node plane from its first node p
-// (strides N along z, sy along y), or zeros.
-template <int N>
-__device__ __forceinline__ void load_plane(float (&v)[4][N], const float* p,
-                                           long long sy, bool in) {
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-#pragma unroll
-    for (int d = 0; d < N; ++d) {
-      v[b][d] = in ? __ldg(p + ((b >> 1) & 1) * sy + (b & 1) * N + d) : 0.0f;
-    }
-  }
-}
 
 // Node dims (NX, NY, NZ), in 2-D NX = 1; node column TY x TZ; `chunk` node
 // planes per block. Element columns of the tile: (TY + 1) x (TZ + 1), from
@@ -179,33 +142,9 @@ apply_k_fine_stream_kernel(const float* __restrict__ u,
       wht<N>(hi, 3);
       float out[4][N];  // forces on node plane e
       if (plane_in && e >= 0 && e < EX) {  // element (e, gey, gez)
-        float v[NPE][N], w[NPE][N];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-#pragma unroll
-          for (int d = 0; d < N; ++d) {
-            if (HX) {  // the transform's x stage
-              v[b][d] = lo[b][d] + hi[b][d];
-              v[b + 4 * HX][d] = lo[b][d] - hi[b][d];
-            } else {
-              v[b][d] = hi[b][d];
-            }
-          }
-        }
+        float w[NPE][N];
+        element_forces<N>(lo, hi, w);
         const float y = __ldg(yp);
-#pragma unroll
-        for (int s = 0; s < NPE; ++s) {
-#pragma unroll
-          for (int c = 0; c < N; ++c) {
-            float acc = 0.0f;
-#pragma unroll
-            for (int d = 0; d < N; ++d) {
-              acc = fmaf(c_B[(s * N + c) * N + d], v[s ^ (1 << (N - 1 - d))][d], acc);
-            }
-            w[s ^ (1 << (N - 1 - c))][c] = acc;
-          }
-        }
-        wht<N>(w, NPE - 1);
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
 #pragma unroll
@@ -317,13 +256,12 @@ int launch(const float* u, const float* young, float* f, int NX, int NY, int NZ,
 }  // namespace
 
 // B: the 2^N reflection-basis blocks of K0 (kernels.reflection_blocks),
-// 2^N N^2 fp32 on the device, copied on the stream into the kernel's
-// constant memory. Returns a cudaError_t code.
+// 2^N N^2 fp32 on the device, copied on the stream into the constant memory
+// of both fp32 fine kernels (this one and apply_k_fine_elem_f32.cu's).
+// Returns a cudaError_t code.
 extern "C" int ndr_fine_set_blocks(const void* B, int ndim, void* stream) {
-  if (ndim != 2 && ndim != 3) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaMemcpyToSymbolAsync(
-      c_B, B, sizeof(float) * (1 << ndim) * ndim * ndim, 0, cudaMemcpyDeviceToDevice,
-      static_cast<cudaStream_t>(stream)));
+  const int err = set_blocks(B, ndim, stream);
+  return err ? err : fine_elem_set_blocks(B, ndim, stream);
 }
 
 // u: nodes + (N,) fp32; young: dims fp32; f: nodes + (N,) fp32, written in

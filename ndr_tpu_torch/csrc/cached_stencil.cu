@@ -17,15 +17,34 @@
 //
 // ndr_cached_stencil_f32 (assembly). Slot (o, c, d) of node n sums, over the
 // local nodes a of n's incident elements e = n - bits(a), the coefficient
-// Ke_e[a N + c, b N + d] with bits(b) = bits(a) + o. One block per 32
-// consecutive nodes. For each a in turn it reads rows a N .. a N + N - 1 of
-// its nodes' elements (N d_pe contiguous values per element, so the reads
-// are coalesced) and adds each value into its slot's accumulator in shared
-// memory. Within one a no two values go to one slot, and the a are taken in
-// order with a barrier between them, so every slot is summed in the fixed
-// order a = 0, 1, ..., the order of the plain twin's slice adds, without
-// atomics. The block then writes its slots, 32 consecutive nodes per warp
-// store. Bound: bytes, the Ke stack read once and the stencil written once.
+// Ke_e[a N + c, b N + d] with bits(b) = bits(a) + o, in the order a = 0,
+// 1, ..., the order of the plain twin's slice adds, so the two are bitwise
+// equal. Bound: bytes, the Ke stack read once (736 MB at level 1 of a
+// 192x96x96 hierarchy, 0.22 ms at 3.35 TB/s) and the stencil written once.
+// A block owns 64 consecutive nodes and holds their slots in shared
+// memory (63 KB in 3-D). It walks the 2^N local nodes a in phases with a
+// barrier between them: in phase a it adds rows a N .. a N + N - 1 of each
+// node's element e (N d_pe contiguous fp32, 288 B in 3-D, 16-B aligned)
+// into the slots; within one phase no two values go to one slot, so there
+// are no atomics. Loaded one value at a time, each load consumed by its
+// shared-memory add before the next issues (a bounds branch and a
+// slot-table lookup per value), a thread keeps one 4-B load in flight,
+// far less than the card needs to reach its memory rate. Here TPN = 6
+// threads per node (4 in 2-D) each load 3 float4 of a row set (1 in 2-D),
+// four phases at a time: the loads of phases a + 4 .. a + 7 are issued
+// before the adds of phases a .. a + 3, so each thread keeps 192 B in
+// flight across four barriers (phase 0-3's loads go out before the
+// accumulators are zeroed). Loads go through the L2's normal policy, not
+// evict-first: a 288-B row set ends inside a 64-B line whose other half
+// the block of the neighbouring node reads soon after. The slot of each
+// value is a compile-time function of (a, row offset): the thread's slot
+// offsets at a = 0 are computed once and each phase subtracts a constant.
+// The block then writes its slots, 64 consecutive nodes per store run.
+// Measured on an H100 (PERF.md): two, then four phases in flight,
+// __ldg, and larger blocks each gained; lanes on consecutive nodes (fewer
+// bank conflicts) lost; at level 2 of a 192x96x96 hierarchy (30,625 nodes)
+// blocks of 32 to 64 nodes, and two or four phases, came within 15% of
+// one another, whatever the wave count, so one design serves every level.
 //
 // ndr_apply_k_cached_f32 (apply). One thread per (node, output component):
 // 128 consecutive nodes x N components per block, so at level 2 of a
@@ -41,8 +60,8 @@
 
 namespace {
 
-constexpr int kAsmNodes = 32;      // nodes per assembly block
-constexpr int kAsmThreads = 256;
+constexpr int kAsmNodes = 64;   // nodes per assembly block
+constexpr int kAsmPhases = 4;   // phases whose row sets a thread loads together
 constexpr int kApplyNodes = 128;   // nodes per apply block (x N components)
 
 template <int NDIM>
@@ -52,84 +71,142 @@ struct Stencil {
   static constexpr int ROWS = NDIM * D;                 // one local node's Ke rows
   static constexpr int NOFF = NDIM == 3 ? 27 : 9;       // neighbour offsets
   static constexpr int SLOTS = NOFF * NDIM * NDIM;
+  static constexpr int E4 = D * D / 4;                  // float4 per element's Ke
+  static constexpr int V4 = ROWS / 4;                   // float4 per row set: 18 / 4
+  static constexpr int TPN = NDIM == 3 ? 6 : 4;         // assembly threads per node
+  static constexpr int PER = V4 / TPN;                  // float4 per thread and phase
+  static constexpr int CENTER = NOFF / 2;               // the offset (0, .., 0)
 };
 
 // Offset bit of local node `a` along `axis` (C order: last axis lowest bit).
 template <int NDIM>
-__device__ __forceinline__ int local_bit(int a, int axis) {
+__host__ __device__ constexpr int local_bit(int a, int axis) {
   return axis < NDIM ? (a >> (NDIM - 1 - axis)) & 1 : 0;
 }
 
+// The stencil offset index of bits(a), C order over (0, 1, 2)^N: the slot
+// of (a, c, b, d) is ((bits3(b) + CENTER - bits3(a)) N + c) N + d.
 template <int NDIM>
-__global__ void __launch_bounds__(kAsmThreads)
-cached_stencil_kernel(const float* __restrict__ ke, float* __restrict__ S,
+__host__ __device__ constexpr int bits3(int a) {
+  int o = 0;
+  for (int axis = 0; axis < NDIM; ++axis) o = o * 3 + local_bit<NDIM>(a, axis);
+  return o;
+}
+
+template <int NDIM>
+__global__ void __launch_bounds__(kAsmNodes * Stencil<NDIM>::TPN)
+cached_stencil_kernel(const float4* __restrict__ ke, float* __restrict__ S,
                       int ex, int ey, int ez, int nodes) {
   using St = Stencil<NDIM>;
-  __shared__ float acc[St::SLOTS][kAsmNodes + 1];   // +1: no bank conflicts
-  __shared__ long long rows_at[St::NPE][kAsmNodes];  // Ke offset, or -1
-  __shared__ short slot_of[St::NPE][St::ROWS];
+  constexpr int N = NDIM;
+  constexpr int stride = kAsmNodes + 1;  // odd: fewer bank conflicts
+  extern __shared__ float acc[];         // SLOTS rows of `stride`
   const int t = threadIdx.x;
+  const int kk = t / St::TPN, r = t % St::TPN;
   const int base = blockIdx.x * kAsmNodes;
+  const int n = base + kk;
   const int ny = ey + 1;
   const int nz = NDIM == 3 ? ez + 1 : 1;
-
-  for (int q = t; q < St::SLOTS * (kAsmNodes + 1); q += kAsmThreads) {
-    (&acc[0][0])[q] = 0.0f;
-  }
-  // where rows a N .. a N + N - 1 of node n's element e = n - bits(a) start
-  for (int q = t; q < St::NPE * kAsmNodes; q += kAsmThreads) {
-    const int a = q / kAsmNodes;
-    const int kk = q % kAsmNodes;
-    const int n = base + kk;
-    long long at = -1;
-    if (n < nodes) {
-      const int k = NDIM == 3 ? n % nz : 0;
-      const int j = (n / nz) % ny;
-      const int i = n / (nz * ny);
-      const int ei = i - local_bit<NDIM>(a, 0);
-      const int ej = j - local_bit<NDIM>(a, 1);
-      const int ek = NDIM == 3 ? k - local_bit<NDIM>(a, 2) : 0;
-      if (ei >= 0 && ei < ex && ej >= 0 && ej < ey &&
-          (NDIM == 2 || (ek >= 0 && ek < ez))) {
-        const long long e = NDIM == 3
-            ? (static_cast<long long>(ei) * ey + ej) * ez + ek
-            : static_cast<long long>(ei) * ey + ej;
-        at = e * (St::D * St::D) + a * St::ROWS;
-      }
-    }
-    rows_at[a][kk] = at;
-  }
-  // the slot that value w = c d_pe + b N + d of local node a's rows feeds
-  for (int q = t; q < St::NPE * St::ROWS; q += kAsmThreads) {
-    const int a = q / St::ROWS;
-    const int w = q % St::ROWS;
-    const int c = w / St::D;
-    const int b = (w % St::D) / NDIM;
-    const int d = w % NDIM;
-    int o = 0;
-    for (int axis = 0; axis < NDIM; ++axis) {
-      o = o * 3 + local_bit<NDIM>(b, axis) - local_bit<NDIM>(a, axis) + 1;
-    }
-    slot_of[a][w] = static_cast<short>((o * NDIM + c) * NDIM + d);
-  }
-  __syncthreads();
-
+  const int k = NDIM == 3 ? n % nz : 0;
+  const int j = (n / nz) % ny;
+  const int i = n / (nz * ny);
+  // the phases a whose element n - bits(a) lies in the grid
+  unsigned valid = 0;
+#pragma unroll
   for (int a = 0; a < St::NPE; ++a) {
-    for (int q = t; q < kAsmNodes * St::ROWS; q += kAsmThreads) {
-      const int kk = q / St::ROWS;
-      const int w = q % St::ROWS;
-      const long long at = rows_at[a][kk];
-      if (at >= 0) acc[slot_of[a][w]][kk] += __ldcs(ke + at + w);
+    const int ei = i - local_bit<NDIM>(a, 0);
+    const int ej = j - local_bit<NDIM>(a, 1);
+    const int ek = k - local_bit<NDIM>(a, 2);
+    if (n < nodes && ei >= 0 && ei < ex && ej >= 0 && ej < ey &&
+        (NDIM == 2 || (ek >= 0 && ek < ez))) {
+      valid |= 1u << a;
     }
-    __syncthreads();
+  }
+  // float4 index of this thread's part of element (i, j, k)'s local node 0
+  // rows (off the grid where n is on a far face; only valid phases' shifts
+  // are added to it), and the element strides in float4
+  const long long s0 = static_cast<long long>(NDIM == 3 ? ey * ez : ey) * St::E4;
+  const long long s1 = static_cast<long long>(NDIM == 3 ? ez : 1) * St::E4;
+  const long long s2 = St::E4;
+  const long long at0 = (static_cast<long long>(i) * s0 + j * s1 + (NDIM == 3 ? k * s2 : 0)) + r;
+  // accumulator index of each value this thread loads, at phase 0
+  int slot0[St::PER][4];
+#pragma unroll
+  for (int q = 0; q < St::PER; ++q) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int w = 4 * (r + q * St::TPN) + v;
+      const int c = w / St::D, b = (w % St::D) / N, d = w % N;
+      slot0[q][v] = (((bits3<N>(b) + St::CENTER) * N + c) * N + d) * stride + kk;
+    }
+  }
+  auto load = [&](int a, float4 (&dst)[St::PER]) {
+    const long long at = at0 + a * St::V4 - local_bit<NDIM>(a, 0) * s0 -
+                         local_bit<NDIM>(a, 1) * s1 - local_bit<NDIM>(a, 2) * s2;
+    const bool in = (valid >> a) & 1;
+#pragma unroll
+    for (int q = 0; q < St::PER; ++q) {
+      dst[q] = in ? __ldg(ke + at + q * St::TPN) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  };
+
+  constexpr int P = kAsmPhases;
+  float4 cur[P][St::PER], nxt[P][St::PER];
+#pragma unroll
+  for (int p = 0; p < P; ++p) load(p, cur[p]);
+  for (int q = t; q < St::SLOTS * stride; q += kAsmNodes * St::TPN) acc[q] = 0.0f;
+  __syncthreads();
+#pragma unroll
+  for (int a0 = 0; a0 < St::NPE; a0 += P) {
+    if (a0 + P < St::NPE) {  // in flight across these phases
+#pragma unroll
+      for (int p = 0; p < P; ++p) load(a0 + P + p, nxt[p]);
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int a = a0 + p;
+      if ((valid >> a) & 1) {
+        const int shift = bits3<N>(a) * N * N * stride;
+#pragma unroll
+        for (int q = 0; q < St::PER; ++q) {
+          acc[slot0[q][0] - shift] += cur[p][q].x;
+          acc[slot0[q][1] - shift] += cur[p][q].y;
+          acc[slot0[q][2] - shift] += cur[p][q].z;
+          acc[slot0[q][3] - shift] += cur[p][q].w;
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int q = 0; q < St::PER; ++q) cur[p][q] = nxt[p][q];
+    }
   }
 
-  for (int q = t; q < St::SLOTS * kAsmNodes; q += kAsmThreads) {
-    const int s = q / kAsmNodes;
-    const int kk = q % kAsmNodes;
-    const int n = base + kk;
-    if (n < nodes) S[static_cast<long long>(s) * nodes + n] = acc[s][kk];
+  // node base + t % kAsmNodes, slots t / kAsmNodes, + TPN, ...
+  const int col = t % kAsmNodes;
+  if (base + col < nodes) {
+    for (int s = t / kAsmNodes; s < St::SLOTS; s += St::TPN) {
+      S[static_cast<long long>(s) * nodes + base + col] = acc[s * stride + col];
+    }
   }
+}
+
+template <int NDIM>
+int launch_stencil(const float* ke, float* S, int ex, int ey, int ez, cudaStream_t s) {
+  using St = Stencil<NDIM>;
+  constexpr size_t smem = sizeof(float) * St::SLOTS * (kAsmNodes + 1);  // 63 KB in 3-D
+  // per launch: the attribute belongs to the current device
+  const cudaError_t err = cudaFuncSetAttribute(
+      cached_stencil_kernel<NDIM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nodes = (ex + 1) * (ey + 1) * (NDIM == 3 ? ez + 1 : 1);
+  const unsigned int blocks = (nodes + kAsmNodes - 1) / kAsmNodes;
+  cached_stencil_kernel<NDIM><<<blocks, kAsmNodes * St::TPN, smem, s>>>(
+      reinterpret_cast<const float4*>(ke), S, ex, ey, ez, nodes);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int NDIM>
@@ -167,22 +244,19 @@ cached_apply_kernel(const float* __restrict__ u, const float* __restrict__ S,
 
 }  // namespace
 
-// ke: (ex, ey[, ez], d_pe, d_pe) fp32; S: (3^N, N, N) + node dims fp32,
-// written in full. Returns a cudaError_t code.
+// ke: (ex, ey[, ez], d_pe, d_pe) fp32, 16-B aligned; S: (3^N, N, N) + node
+// dims fp32, written in full. Returns a cudaError_t code.
 extern "C" int ndr_cached_stencil_f32(const void* ke, void* S, int ndim, int ex,
                                       int ey, int ez, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ndim != 2 && ndim != 3) return static_cast<int>(cudaErrorInvalidValue);
-  const int nodes = (ex + 1) * (ey + 1) * (ndim == 3 ? ez + 1 : 1);
-  const unsigned int blocks = (nodes + kAsmNodes - 1) / kAsmNodes;
   const float* kp = static_cast<const float*>(ke);
   float* sp = static_cast<float*>(S);
-  if (ndim == 3) {
-    cached_stencil_kernel<3><<<blocks, kAsmThreads, 0, s>>>(kp, sp, ex, ey, ez, nodes);
-  } else {
-    cached_stencil_kernel<2><<<blocks, kAsmThreads, 0, s>>>(kp, sp, ex, ey, 1, nodes);
+  if (reinterpret_cast<unsigned long long>(ke) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (ndim == 3) return launch_stencil<3>(kp, sp, ex, ey, ez, s);
+  if (ndim == 2) return launch_stencil<2>(kp, sp, ex, ey, 1, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // u: node dims + (N,) fp32; S: a ndr_cached_stencil_f32 stencil of the same

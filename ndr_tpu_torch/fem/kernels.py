@@ -8,7 +8,7 @@ levels' node stencil; their sources are in ``ndr_tpu_torch/csrc/``:
 wrapper                replaces (pallas_kernels.py)  source (csrc/)
 =====================  ============================  ====================
 apply_k_fine_f32       apply_k_pallas_flat           apply_k_fine_f32.cu
-apply_k_fine_elem_f32  apply_k_pallas                apply_k_fine_elem.cu
+apply_k_fine_elem_f32  apply_k_pallas                apply_k_fine_elem_f32.cu
 apply_k_cached_f32     apply_k_pallas_cached         cached_stencil.cu
 cached_stencil         ke_stream_layout, the cached  cached_stencil.cu
                        kernel's operand layout
@@ -18,10 +18,13 @@ apply_k_fine_elem_f64  apply_k_pallas_df_flat        apply_k_fine_elem.cu
 
 Plain twins: :func:`apply_k_fine_plain` for the four fine wrappers,
 :func:`apply_k_cached_f32_plain` and :func:`cached_stencil_plain`.
-The fp32 fine apply is element-centric in the basis of the element's
-reflections (:func:`reflection_blocks`), streamed along x; the
-float64 one runs one thread per node; the element-centric ones compute
-each element's contraction once and sum partials in a second pass. A
+Both fp32 fine applies are element-centric in the basis of the element's
+reflections (:func:`reflection_blocks`), streamed along x:
+``apply_k_fine_f32`` recomputes the elements on its tiles' edges,
+``apply_k_fine_elem_f32`` computes each element once and stitches the
+forces on its blocks' faces in a second pass. The float64 one runs one
+thread per node; the element-centric float64 one computes each element's
+contraction once and sums per-offset partials in a second pass. A
 cached (Galerkin) level is applied from its assembled node stencil
 (:func:`cached_stencil`, built once per hierarchy build), not from its
 per-element Ke stack. Which fine kernels the solver runs is its
@@ -57,8 +60,8 @@ from ndr_tpu_torch.fem import operators as ops
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ndr_tpu_torch"
-_SOURCES = ("apply_k_fine_f32.cu", "apply_k_fine.cu", "apply_k_fine_elem.cu",
-            "cached_stencil.cu")
+_SOURCES = ("apply_k_fine_f32.cu", "apply_k_fine_elem_f32.cu", "apply_k_fine.cu",
+            "apply_k_fine_elem.cu", "cached_stencil.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -74,8 +77,11 @@ launches: Dict[str, int] = {
 
 _lib: Optional[ctypes.CDLL] = None
 #: The K0 tensor (and its version) whose reflection blocks the fp32 fine
-#: kernel's constant memory holds, per device index.
+#: kernels' constant memory holds, per device index.
 _fine_k0: Dict[int, Tuple[torch.Tensor, int]] = {}
+#: apply_k_fine_elem_f32's block geometry (slab, tile y, tile z, partials
+#: slots) per (device index, element dims), as its launcher picks it.
+_elem_geometry: Dict[Tuple[int, Tuple[int, ...]], Tuple[int, int, int, int]] = {}
 #: What the last :func:`build` did: library path, seconds, compiler output.
 build_info: Dict[str, object] = {}
 
@@ -122,14 +128,18 @@ def build() -> float:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ndr_fine_set_blocks.argtypes = [ptr, i32, ptr]
     lib.ndr_fine_set_blocks.restype = i32
+    lib.ndr_fine_elem_geometry.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
+    lib.ndr_fine_elem_geometry.restype = i32
+    lib.ndr_apply_k_fine_elem_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                              i32, i32, i32, ptr]
+    lib.ndr_apply_k_fine_elem_f32.restype = i32
     lib.ndr_apply_k_fine_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.ndr_apply_k_fine_f32.restype = i32
     lib.ndr_apply_k_fine_f64.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.ndr_apply_k_fine_f64.restype = i32
-    for name in ("ndr_apply_k_fine_elem_f32", "ndr_apply_k_fine_elem_f64"):
-        getattr(lib, name).argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                       i32, i32, ptr]
-        getattr(lib, name).restype = i32
+    lib.ndr_apply_k_fine_elem_f64.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                              i32, i32, ptr]
+    lib.ndr_apply_k_fine_elem_f64.restype = i32
     lib.ndr_cached_stencil_f32.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
     lib.ndr_cached_stencil_f32.restype = i32
     lib.ndr_apply_k_cached_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
@@ -138,6 +148,7 @@ def build() -> float:
     lib.ndr_error_string.restype = ctypes.c_char_p
     _lib = lib
     _fine_k0.clear()
+    _elem_geometry.clear()
     seconds = time.perf_counter() - t0
     build_info.update(path=str(lib_path), seconds=seconds, log=log)
     return seconds
@@ -249,17 +260,18 @@ def reflection_blocks(K0: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 def _set_fine_blocks(K0: torch.Tensor, grid: Grid) -> None:
-    """Copy K0's reflection blocks into the fp32 fine kernel's constant
-    memory unless this very tensor, unchanged since, is already there (once
-    per problem, not per launch). Holding the tensor keeps its memory from
-    being reused."""
-    held = _fine_k0.get(K0.device.index)
+    """Copy K0's reflection blocks into the constant memory of both fp32
+    fine kernels unless this very tensor, unchanged since, is already
+    there (once per problem, not per launch). Holding the tensor keeps its
+    memory from being reused."""
+    key = K0.device.index
+    held = _fine_k0.get(key)
     if held is not None and held[0] is K0 and held[1] == K0._version:
         return
     B = reflection_blocks(K0, grid.ndim)
     code = _lib.ndr_fine_set_blocks(B.data_ptr(), grid.ndim, _stream(K0.device))
-    _check_launch(code, "apply_k_fine_f32 (K0 blocks upload)")
-    _fine_k0[K0.device.index] = (K0, K0._version)
+    _check_launch(code, "fp32 fine kernels (K0 blocks upload)")
+    _fine_k0[key] = (K0, K0._version)
 
 
 def apply_k_fine_f32(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
@@ -304,50 +316,80 @@ def apply_k_fine_f64(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
 # and float64 (replaces pallas_kernels.apply_k_pallas_df_flat)
 # ---------------------------------------------------------------------------
 
-#: x-elements per slab of the element-centric kernels (one thread walks a
-#: slab of one trailing element column), the TPU kernel's default slab.
-ELEM_SLAB = 8
+def elem_geometry(grid: Grid, device: torch.device) -> Tuple[int, int, int, int]:
+    """:func:`apply_k_fine_elem_f32`'s block geometry on ``device`` (a
+    card): (slab, tile y, tile z, partials slots). Blocks of slab x tile y
+    x tile z elements (2-D: tile y x tile z over the grid's two axes) each
+    keep one slot of N fp32 partial forces per node of their shell (their
+    node box less its interior); only the slots of nodes on a block
+    boundary inside the grid are written."""
+    lib = _library()
+    index = torch.device(device).index
+    key = (torch.cuda.current_device() if index is None else index, tuple(grid.dims))
+    if key not in _elem_geometry:
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(key[0]):
+            code = lib.ndr_fine_elem_geometry(grid.ndim, *_dims3(grid), out)
+        _check_launch(code, "apply_k_fine_elem_f32 (geometry)")
+        _elem_geometry[key] = tuple(out)
+    return _elem_geometry[key]
 
 
-def elem_partials_shape(grid: Grid, slab: int = ELEM_SLAB):
-    """Shape of the element-centric kernels' scratch: one partial force
+def apply_k_fine_elem_f32(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
+                          grid: Grid) -> torch.Tensor:
+    """f = K(E) u in fp32 on a degree-1 grid, element-centric: each
+    element's contraction once, in the reflection basis (K0 as for
+    :func:`apply_k_fine_f32`), the forces on block faces stitched in a
+    second pass."""
+    if not _on_cuda(u):
+        return apply_k_fine_plain(u, young, K0, grid)
+    _check_fine(u, young, K0, grid, torch.float32)
+    lib = _library()
+    with torch.cuda.device(u.device):
+        slab, ty, tz, slots = elem_geometry(grid, u.device)
+        part = torch.empty((slots, grid.ndim), dtype=torch.float32, device=u.device)
+        f = torch.empty_like(u)
+        _set_fine_blocks(K0, grid)
+        code = lib.ndr_apply_k_fine_elem_f32(
+            u.data_ptr(), young.data_ptr(), part.data_ptr(), f.data_ptr(), grid.ndim,
+            *_dims3(grid), slab, ty, tz, _stream(u.device))
+    _check_launch(code, "apply_k_fine_elem_f32")
+    launches["apply_k_fine_elem_f32"] += 1
+    return f
+
+
+#: x-elements per slab of the element-centric float64 kernel (one thread
+#: walks a slab of one trailing element column), the TPU kernel's default.
+ELEM_F64_SLAB = 8
+
+
+def elem_f64_partials_shape(grid: Grid, slab: int = ELEM_F64_SLAB):
+    """Shape of :func:`apply_k_fine_elem_f64`'s scratch: one partial force
     field per (x-slab, slab node plane, trailing node offset, component),
     over the trailing element dims."""
     nslabs = -(-grid.dims[0] // slab)
     return (nslabs, slab + 1, 1 << (grid.ndim - 1), grid.ndim) + tuple(grid.dims[1:])
 
 
-def _apply_fine_elem(u, young, K0, grid: Grid, dtype: torch.dtype,
-                     name: str) -> torch.Tensor:
-    if not _on_cuda(u):
-        return apply_k_fine_plain(u, young, K0, grid)
-    _check_fine(u, young, K0, grid, dtype)
-    entry = getattr(_library(), f"ndr_{name}")
-    part = torch.empty(elem_partials_shape(grid), dtype=dtype, device=u.device)
-    f = torch.empty_like(u)
-    with torch.cuda.device(u.device):
-        code = entry(u.data_ptr(), young.data_ptr(), K0.data_ptr(),
-                     part.data_ptr(), f.data_ptr(), grid.ndim, *_dims3(grid),
-                     ELEM_SLAB, _stream(u.device))
-    _check_launch(code, name)
-    launches[name] += 1
-    return f
-
-
-def apply_k_fine_elem_f32(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
-                          grid: Grid) -> torch.Tensor:
-    """f = K(E) u in fp32 on a degree-1 grid, element-centric: each
-    element's contraction once, summed through per-offset partials."""
-    return _apply_fine_elem(u, young, K0, grid, torch.float32,
-                            "apply_k_fine_elem_f32")
-
-
 def apply_k_fine_elem_f64(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
                           grid: Grid) -> torch.Tensor:
-    """As :func:`apply_k_fine_elem_f32` in float64 (the refinement's true
-    residual under ``fine_kernel="flat"``)."""
-    return _apply_fine_elem(u, young, K0, grid, torch.float64,
-                            "apply_k_fine_elem_f64")
+    """f = K(E) u in float64 on a degree-1 grid, element-centric: each
+    element's contraction once, summed through per-offset partials (the
+    refinement's true residual under ``fine_kernel="flat"``)."""
+    if not _on_cuda(u):
+        return apply_k_fine_plain(u, young, K0, grid)
+    _check_fine(u, young, K0, grid, torch.float64)
+    lib = _library()
+    part = torch.empty(elem_f64_partials_shape(grid), dtype=torch.float64,
+                       device=u.device)
+    f = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        code = lib.ndr_apply_k_fine_elem_f64(
+            u.data_ptr(), young.data_ptr(), K0.data_ptr(), part.data_ptr(),
+            f.data_ptr(), grid.ndim, *_dims3(grid), ELEM_F64_SLAB, _stream(u.device))
+    _check_launch(code, "apply_k_fine_elem_f64")
+    launches["apply_k_fine_elem_f64"] += 1
+    return f
 
 
 #: The solver's ``fine_kernel`` settings: the JAX package's fine-kernel
@@ -419,6 +461,8 @@ def cached_stencil(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
     _check_grid(grid)
     d_pe = grid.nodes_per_elem * grid.ndim
     _check("Ke", Ke, torch.float32, grid.dims + (d_pe, d_pe), Ke.device)
+    if Ke.data_ptr() % 16:
+        raise ValueError("Ke must be 16-byte aligned (the kernel reads float4)")
     lib = _library()
     S = torch.empty(stencil_shape(grid), dtype=torch.float32, device=Ke.device)
     with torch.cuda.device(Ke.device):

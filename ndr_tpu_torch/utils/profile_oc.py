@@ -43,6 +43,7 @@ TOP_OPS = 16
 #: reported whether or not they are among the top device ops.
 PORT_KERNELS = ("apply_k_fine_stream_kernel", "cached_apply_kernel",
                 "cached_stencil_kernel", "apply_k_fine_kernel",
+                "elem_blocks_kernel", "stitch_faces",
                 "apply_k_elem_partials", "sum_elem_partials")
 
 #: (label, owner, attribute) of each synchronized section.

@@ -31,6 +31,13 @@ CASES = [
     ("problems/3d/cantilever_flexion.json", (32, 16, 16)),
     ("problems/3d/bridge.json", (13, 7, 5)),
     ("problems/3d/bridge.json", (64, 32, 16)),
+    # dims that are no multiple of the element-centric fp32 kernel's slab
+    # or tiles, more than one tile along y and z, a one-element-thick 3-D
+    # grid, an odd 2-D grid
+    ("problems/3d/bridge.json", (37, 19, 23)),
+    ("problems/3d/bridge.json", (20, 18, 34)),
+    ("problems/3d/bridge.json", (9, 5, 1)),
+    ("problems/2d/mbb_beam.json", (37, 21)),
 ]
 
 
@@ -77,19 +84,24 @@ def test_fine_kernels_match_twins(device, prob_path, dims):
 @pytest.mark.parametrize("prob_path,dims", CASES)
 def test_cached_kernel_matches_twin(device, prob_path, dims):
     """Stencil assembly and cached apply on a random stack on the grid
-    itself (any shape) and on the Galerkin level-1 stack where the grid
-    coarsens. The assembly sums each slot in its twin's order."""
+    itself (any shape) and on the Galerkin level-1 and level-2 stacks where
+    the grid coarsens. The assembly sums each slot in its twin's order, so
+    the two are bitwise equal."""
     prob, grid = problem_from_config(load_problem(prob_path), dims=dims,
                                      dtype=torch.float32, device=device)
     rng = np.random.default_rng(3)
     d = grid.nodes_per_elem * grid.ndim
     stacks = [(grid, torch.tensor(rng.standard_normal(grid.dims + (d, d)),
                                   dtype=torch.float32, device=device))]
-    if mg.max_feasible_coarsenings(grid):
-        cfg = mg.build_mg_config(prob, 1)
+    levels = min(2, mg.max_feasible_coarsenings(grid))
+    if levels:
+        cfg = mg.build_mg_config(prob, levels)
         young = prob.young(torch.tensor(rng.uniform(0.1, 1.0, grid.dims),
                                         dtype=torch.float32, device=device))
-        stacks.append((cfg.levels[1].grid, mg.build_level_ke(cfg, young, 1)))
+        Ke = mg.build_level_ke(cfg, young, 1)
+        stacks.append((cfg.levels[1].grid, Ke))
+        if levels == 2:
+            stacks.append((cfg.levels[2].grid, mg.coarsen_ke(Ke, grid.ndim).contiguous()))
     kernels.reset_launches()
     for g, Ke in stacks:
         stencil = kernels.cached_stencil(Ke, g)
@@ -97,10 +109,29 @@ def test_cached_kernel_matches_twin(device, prob_path, dims):
                          dtype=torch.float32, device=device)
         f = kernels.apply_k_cached_f32(u, stencil, g)
         torch.cuda.synchronize()
-        assert _rel(stencil, kernels.cached_stencil_plain(Ke, g)) < 1e-5
+        torch.testing.assert_close(stencil, kernels.cached_stencil_plain(Ke, g),
+                                   rtol=0, atol=0)
         assert _rel(f, kernels.apply_k_cached_f32_plain(u, stencil, g)) < 1e-5
     assert kernels.launches["cached_stencil"] == len(stacks)
     assert kernels.launches["apply_k_cached_f32"] == len(stacks)
+
+
+@pytest.mark.parametrize("prob_path,dims", [CASES[-1], CASES[5],
+                                             ("problems/3d/bridge.json", (192, 96, 96))])
+def test_elem_f32_partials_only_on_block_faces(device, prob_path, dims):
+    """The element-centric fp32 kernel's scratch: one slot per node of each
+    block's shell (its node box less its interior), N fp32 each; at
+    192x96x96 that is less than the f field (a partial plane per slab
+    plane, trailing offset and component, as the TPU kernel keeps, is
+    ~4.5x it)."""
+    _, grid = problem_from_config(load_problem(prob_path), dims=dims, device=device)
+    slab, ty, tz, slots = kernels.elem_geometry(grid, device)
+    tiles = (slab, ty, tz)[-grid.ndim:]   # elements per block along each axis
+    blocks = int(np.prod([-(-n // t) for n, t in zip(dims, tiles)]))
+    shell = int(np.prod([t + 1 for t in tiles]) - np.prod([t - 1 for t in tiles]))
+    assert slots == blocks * shell
+    if dims == (192, 96, 96):
+        assert slots < grid.num_nodes
 
 
 def test_kernels_refuse_f64_hierarchy(device):
@@ -124,6 +155,26 @@ def test_kernels_refuse_f64_hierarchy(device):
     u, _ = mg.make_mg_solver(
         prob, dataclasses.replace(settings, use_kernels=False))(rho)
     assert u.dtype == torch.float64 and bool(torch.isfinite(u).all())
+    assert kernels.launches == {name: 0 for name in kernels.launches}
+
+
+@pytest.mark.parametrize("fine_kernel", ["flat32", "variant"])
+def test_fp32_fine_kernels_refuse_asymmetric_k0(device, fine_kernel):
+    """Both fp32 fine kernels work in the element's reflection basis and
+    raise on a K0 without that symmetry, rather than apply the wrong K."""
+    prob, grid = problem_from_config(load_problem(CASES[1][0]), dims=CASES[1][1],
+                                     device=device)
+    rng = np.random.default_rng(6)
+    u = torch.tensor(rng.standard_normal(grid.nodes_per_dim + (3,)),
+                     dtype=torch.float32, device=device)
+    young = torch.ones(grid.dims, device=device)
+    K0 = prob.K0.float().clone()
+    K0[0, 4] += 0.1 * float(K0.abs().max())   # a coupling outside the blocks
+    K0[4, 0] = K0[0, 4]
+    fine32 = kernels.fine_kernels(fine_kernel)[0]
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="reflections"):
+        fine32(u, young, K0, grid)
     assert kernels.launches == {name: 0 for name in kernels.launches}
 
 
