@@ -71,18 +71,19 @@ TOL_ON_OFF = 1e-4   # the solver's tolerance; both runs are f64-refined to it
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
-# float32 outside the tensor cores; float64 on them (IEEE DMMA, the faster of
-# the card's two FP64 rates: the fine apply is a dense 24x24 GEMM over elements)
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+# both off the tensor cores, where the kernels' FMAs run: float32 on the CUDA
+# cores, float64 on the FP64 cores (the reflection design's 3x3 blocks and
+# transforms are no GEMM the FP64 tensor cores' 67 TFLOP/s could take)
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 FINE = {  # wrapper -> (source, replaced TPU kernel, dtype)
-    "apply_k_fine_f32": ("ndr_tpu_torch/csrc/apply_k_fine_f32.cu",
+    "apply_k_fine_f32": ("ndr_tpu_torch/csrc/fine_stream.cu",
                          "ndr_tpu/fem/pallas_kernels.py:395", torch.float32),
-    "apply_k_fine_elem_f32": ("ndr_tpu_torch/csrc/apply_k_fine_elem_f32.cu",
+    "apply_k_fine_elem_f32": ("ndr_tpu_torch/csrc/fine_elem.cu",
                               "ndr_tpu/fem/pallas_kernels.py:238", torch.float32),
-    "apply_k_fine_f64": ("ndr_tpu_torch/csrc/apply_k_fine.cu",
+    "apply_k_fine_f64": ("ndr_tpu_torch/csrc/fine_stream.cu",
                          "ndr_tpu/fem/pallas_kernels.py:636", torch.float64),
-    "apply_k_fine_elem_f64": ("ndr_tpu_torch/csrc/apply_k_fine_elem.cu",
+    "apply_k_fine_elem_f64": ("ndr_tpu_torch/csrc/fine_elem.cu",
                               "ndr_tpu/fem/pallas_kernels.py:852", torch.float64),
 }
 CACHED = {  # wrapper -> (source, replaced TPU kernel or its operand layout)
@@ -220,12 +221,44 @@ def phase_environment():
     print("gpu:", gpu_line())
 
 
+PTXAS_FN_RE = re.compile(
+    r"(?:Compiling entry function|Function properties for) '?([\w.$]+)'?")
+PTXAS_SPILL_RE = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+PTXAS_REGS_RE = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> dict:
+    """{function: [registers, spill bytes]} from ``nvcc -Xptxas -v`` output,
+    names demangled where ``c++filt`` is there."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if (mt := PTXAS_FN_RE.search(line)):
+            fn = mt.group(1)
+            out.setdefault(fn, [None, 0])
+        elif fn and (mt := PTXAS_SPILL_RE.search(line)):
+            out[fn][1] += int(mt.group(1)) + int(mt.group(2))
+        elif fn and (mt := PTXAS_REGS_RE.search(line)):
+            out[fn][0] = int(mt.group(1))
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(out), capture_output=True,
+                               text=True, check=True, timeout=60).stdout.splitlines()
+        names = [n.replace("(anonymous namespace)::", "").split("(")[0]
+                 .removeprefix("void ") for n in names]
+        out = dict(zip(names, out.values()))
+    return out
+
+
 def phase_build(m):
+    """Builds the kernels; prints each kernel's registers and spills from
+    ``ptxas`` and fails on any spill."""
     seconds = m.kernels.build()
     print(f"build: {seconds:.2f} s -> {m.kernels.build_info['path']}")
-    for line in str(m.kernels.build_info["log"]).splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    report = ptxas_report(str(m.kernels.build_info["log"]))
+    check(report, "build: no ptxas lines in the compiler output")
+    for fn, (regs, spill) in report.items():
+        print(f"  ptxas: {regs} registers, {spill} bytes spilled: {fn}")
+    spilled = [fn for fn, (_, spill) in report.items() if spill]
+    check(not spilled, f"build: ptxas spills registers in {spilled}")
 
 
 def phase_kernels(m):
@@ -326,27 +359,26 @@ def phase_kernels(m):
 
             npe = grid.nodes_per_elem
             L = npe.bit_length() - 1
-            # operations of the kernel's design: dense K0 (and the young
-            # scale), or for the two fp32 kernels the reflection basis: the
-            # two transforms (in 3-D the lower node plane's is carried from
-            # the previous element), 2^N N x N blocks, the young scale fused
-            # with the carried forces
+            # operations of the kernels' design, the reflection basis (both
+            # types): the two transforms (in 3-D the lower node plane's is
+            # carried from the previous element), 2^N N x N blocks, the
+            # young scale fused with the carried forces; and of the dense
+            # K0 contraction (with the young scale) that it replaced
             dense_flops = ne * (2 * d * d + d)
-            flops = (ne * (2 * d * L - (d if N == 3 else 0) + 2 * npe * N * N + 2 * d)
-                     if dt == torch.float32 else dense_flops)
+            flops = ne * (2 * d * L - (d if N == 3 else 0) + 2 * npe * N * N + 2 * d)
             io_bytes = 2 * N * nn * b + ne * b
 
             run(name, getattr(kernels, name), kernels.apply_k_fine_plain, args, grid,
                 tol, f"fine {dims}", cost=(io_bytes, flops, dt) if timed else None,
                 library=library if timed else None)
-            if timed and dt == torch.float32:
+            if timed:
                 dense = bound(io_bytes, dense_flops, dt)
                 print(f"    bound with the dense K0 contraction: {dense[0]:.4f} ms "
                       f"by {dense[1]} ({dense_flops / 1e9:.2f} GFLOP)")
-            if timed and name == "apply_k_fine_elem_f32":
+            if timed and name.startswith("apply_k_fine_elem"):
                 # not in its bound: the function needs only u, young and f
-                slab, ty, tz, n_slots = kernels.elem_geometry(grid, dev)
-                scratch = 4 * N * n_slots
+                slab, ty, tz, n_slots = kernels.elem_geometry(grid, dev, dt)
+                scratch = b * N * n_slots
                 print(f"    its design also moves a face-partials scratch of "
                       f"{scratch / 1e6:.1f} MB (slab {slab}, tile {ty}x{tz}), "
                       f"at most once each way: <= {(io_bytes + 2 * scratch) / 1e6:.1f} MB")

@@ -7,29 +7,32 @@ levels' node stencil; their sources are in ``ndr_tpu_torch/csrc/``:
 =====================  ============================  ====================
 wrapper                replaces (pallas_kernels.py)  source (csrc/)
 =====================  ============================  ====================
-apply_k_fine_f32       apply_k_pallas_flat           apply_k_fine_f32.cu
-apply_k_fine_elem_f32  apply_k_pallas                apply_k_fine_elem_f32.cu
+apply_k_fine_f32       apply_k_pallas_flat           fine_stream.cu
+apply_k_fine_f64       apply_k_pallas_df             fine_stream.cu
+apply_k_fine_elem_f32  apply_k_pallas                fine_elem.cu
+apply_k_fine_elem_f64  apply_k_pallas_df_flat        fine_elem.cu
 apply_k_cached_f32     apply_k_pallas_cached         cached_stencil.cu
 cached_stencil         ke_stream_layout, the cached  cached_stencil.cu
                        kernel's operand layout
-apply_k_fine_f64       apply_k_pallas_df             apply_k_fine.cu
-apply_k_fine_elem_f64  apply_k_pallas_df_flat        apply_k_fine_elem.cu
 =====================  ============================  ====================
 
 Plain twins: :func:`apply_k_fine_plain` for the four fine wrappers,
 :func:`apply_k_cached_f32_plain` and :func:`cached_stencil_plain`.
-Both fp32 fine applies are element-centric in the basis of the element's
+The four fine applies are two designs, each instantiated for fp32 and
+for float64 (the refinement's true residual; Hopper has native FP64, so
+no hi/lo split). Both are element-centric in the basis of the element's
 reflections (:func:`reflection_blocks`), streamed along x:
-``apply_k_fine_f32`` recomputes the elements on its tiles' edges,
-``apply_k_fine_elem_f32`` computes each element once and stitches the
-forces on its blocks' faces in a second pass. The float64 one runs one
-thread per node; the element-centric float64 one computes each element's
-contraction once and sums per-offset partials in a second pass. A
-cached (Galerkin) level is applied from its assembled node stencil
-(:func:`cached_stencil`, built once per hierarchy build), not from its
-per-element Ke stack. Which fine kernels the solver runs is its
-``fine_kernel`` setting (:func:`fine_kernels`), the JAX package's
-fine-kernel switch.
+``apply_k_fine_f32`` / ``_f64`` recompute the elements on their tiles'
+edges, ``apply_k_fine_elem_f32`` / ``_f64`` compute each element once and
+stitch the forces on their blocks' faces in a second pass. So all four
+take only a K0 that is invariant under the element's reflections (a box
+element of an isotropic material, every K0 this package builds) and raise
+on any other; on every solver path the fp32 kernel already runs on the
+same K0 before the float64 one. A cached (Galerkin) level is applied
+from its assembled node stencil (:func:`cached_stencil`, built once per
+hierarchy build), not from its per-element Ke stack. Which fine kernels
+the solver runs is its ``fine_kernel`` setting (:func:`fine_kernels`),
+the JAX package's fine-kernel switch.
 
 A wrapper takes its twin only for tensors on the CPU. For a CUDA tensor
 it launches its kernel or raises: there is no fallback. Each launch adds
@@ -37,9 +40,10 @@ one to the wrapper's entry in :data:`launches`, so a run can show that it
 went through the kernels.
 
 The kernels are built at first use (:func:`build`) with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes``, under ``build/ndr_tpu_torch/`` in the checkout. The library's
-name carries a hash of the sources and flags, so an edit rebuilds it.
+``sm_90a``, one compiler process per source, all started together, into
+a shared library with a plain C interface, loaded with ``ctypes``, under
+``build/ndr_tpu_torch/`` in the checkout. The library's name carries a
+hash of the sources and flags, so an edit rebuilds it.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import ctypes
 import hashlib
 import itertools
 import os
+import shutil
 import subprocess
 import time
 from pathlib import Path
@@ -60,10 +65,11 @@ from ndr_tpu_torch.fem import operators as ops
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ndr_tpu_torch"
-_SOURCES = ("apply_k_fine_f32.cu", "apply_k_fine_elem_f32.cu", "apply_k_fine.cu",
-            "apply_k_fine_elem.cu", "cached_stencil.cu")
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_SOURCES = ("fine_stream.cu", "fine_elem.cu", "cached_stencil.cu")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: Name suffix of the C entry points of each kernel type.
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches: Dict[str, int] = {
@@ -76,13 +82,16 @@ launches: Dict[str, int] = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
-#: The K0 tensor (and its version) whose reflection blocks the fp32 fine
-#: kernels' constant memory holds, per device index.
-_fine_k0: Dict[int, Tuple[torch.Tensor, int]] = {}
-#: apply_k_fine_elem_f32's block geometry (slab, tile y, tile z, partials
-#: slots) per (device index, element dims), as its launcher picks it.
-_elem_geometry: Dict[Tuple[int, Tuple[int, ...]], Tuple[int, int, int, int]] = {}
-#: What the last :func:`build` did: library path, seconds, compiler output.
+#: The K0 tensor (and its version) whose reflection blocks the fine
+#: kernels' constant memory holds, per (device index, kernel dtype).
+_fine_k0: Dict[Tuple[int, torch.dtype], Tuple[torch.Tensor, int]] = {}
+#: The element-centric kernels' block geometry (slab, tile y, tile z,
+#: partials slots) per (device index, element dims, dtype), as their
+#: launcher picks it.
+_elem_geometry: Dict[Tuple[int, Tuple[int, ...], torch.dtype],
+                     Tuple[int, int, int, int]] = {}
+#: What the last :func:`build` did: library path, seconds, and the compiler
+#: output of the library's build (kept beside it, so also when it was cached).
 build_info: Dict[str, object] = {}
 
 
@@ -107,39 +116,51 @@ def build() -> float:
         raise RuntimeError("CUDA toolkit not found (no nvcc): cannot build "
                            "the ndr_tpu_torch kernels")
     nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    sources = [str(_CSRC / s) for s in _SOURCES]
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for p in sorted(_CSRC.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     lib_path = _BUILD_DIR / f"libndr_kernels_{h.hexdigest()[:16]}.so"
-    log = ""
-    if not lib_path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log_path = lib_path.with_suffix(".log")  # the compiler output of its build
+    if lib_path.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+    else:
+        obj_dir = _BUILD_DIR / f"{lib_path.stem}.{os.getpid()}.obj"
+        obj_dir.mkdir(parents=True, exist_ok=True)
+        objs = [obj_dir / f"{Path(s).stem}.o" for s in _SOURCES]
+        procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for s, o in zip(_SOURCES, objs)]
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(outs)
+        for proc, out in zip(procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(proc.args)}\n{out}")
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), *sources]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
+        link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{' '.join(link.args)}\n{log}")
+        shutil.rmtree(obj_dir, ignore_errors=True)
+        log_path.write_text(log)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ndr_fine_set_blocks.argtypes = [ptr, i32, ptr]
-    lib.ndr_fine_set_blocks.restype = i32
-    lib.ndr_fine_elem_geometry.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
-    lib.ndr_fine_elem_geometry.restype = i32
-    lib.ndr_apply_k_fine_elem_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                              i32, i32, i32, ptr]
-    lib.ndr_apply_k_fine_elem_f32.restype = i32
-    lib.ndr_apply_k_fine_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-    lib.ndr_apply_k_fine_f32.restype = i32
-    lib.ndr_apply_k_fine_f64.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-    lib.ndr_apply_k_fine_f64.restype = i32
-    lib.ndr_apply_k_fine_elem_f64.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                              i32, i32, ptr]
-    lib.ndr_apply_k_fine_elem_f64.restype = i32
+    for sfx in _SUFFIX.values():
+        getattr(lib, f"ndr_fine_set_blocks_{sfx}").argtypes = [ptr, i32, ptr]
+        getattr(lib, f"ndr_fine_elem_geometry_{sfx}").argtypes = [
+            i32, i32, i32, i32, ctypes.POINTER(i32)]
+        getattr(lib, f"ndr_apply_k_fine_{sfx}").argtypes = [
+            ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        getattr(lib, f"ndr_apply_k_fine_elem_{sfx}").argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
+        for fn in ("fine_set_blocks", "fine_elem_geometry", "apply_k_fine",
+                   "apply_k_fine_elem"):
+            getattr(lib, f"ndr_{fn}_{sfx}").restype = i32
     lib.ndr_cached_stencil_f32.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
     lib.ndr_cached_stencil_f32.restype = i32
     lib.ndr_apply_k_cached_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
@@ -200,13 +221,15 @@ def _stream(device: torch.device) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Fine-level apply, fp32 (replaces pallas_kernels.apply_k_pallas_flat) and
-# float64 (replaces pallas_kernels.apply_k_pallas_df)
+# Fine-level apply in the reflection basis: streamed (replaces
+# pallas_kernels.apply_k_pallas_flat in fp32 and apply_k_pallas_df in
+# float64) and element-centric (replaces apply_k_pallas in fp32 and
+# apply_k_pallas_df_flat in float64)
 # ---------------------------------------------------------------------------
 
 def apply_k_fine_plain(u, young, K0, grid: Grid) -> torch.Tensor:
     """Plain twin of the four fine-level wrappers (fp32 and f64,
-    node- and element-centric)."""
+    streamed and element-centric)."""
     return ops.apply_k(u, young, K0, grid)
 
 
@@ -219,14 +242,21 @@ def _check_fine(u, young, K0, grid: Grid, dtype: torch.dtype) -> None:
 
 
 #: Largest coefficient of K0 outside the reflection blocks, relative to
-#: its largest, that :func:`reflection_blocks` accepts (fp32 rounding of a
-#: symmetric K0 leaves 0; a float64 one ~1e-16).
-REFLECTION_TOL = 1e-6
+#: its largest, that :func:`reflection_blocks` accepts for the kernels of
+#: each dtype: far below each type's own rounding of the apply (the
+#: package's float64 K0s measure ~1e-16; their fp32 rounding leaves 0).
+REFLECTION_TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
+_FINE_NAMES = {
+    torch.float32: "fp32 fine kernels (apply_k_fine_f32, apply_k_fine_elem_f32)",
+    torch.float64: "float64 fine kernels (apply_k_fine_f64, apply_k_fine_elem_f64)",
+}
 
 
-def reflection_blocks(K0: torch.Tensor, ndim: int) -> torch.Tensor:
-    """K0 in the basis of the element's reflections, as the fp32 fine
-    kernel takes it: (2^N, N, N) blocks B_s[c, d], divided by 2^N.
+def reflection_blocks(K0: torch.Tensor, ndim: int,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K0 in the basis of the element's reflections, as the fine kernels
+    of ``dtype`` (fp32 or float64) take it: (2^N, N, N) blocks B_s[c, d],
+    divided by 2^N, computed in float64 and returned in ``dtype``.
 
     With W the Walsh-Hadamard transform over the element's 2^N nodes
     applied to each component, ``W[(t, d), (b, d)] = (-1)^popcount(t & b)``,
@@ -234,7 +264,8 @@ def reflection_blocks(K0: torch.Tensor, ndim: int) -> torch.Tensor:
     t ^ e_c = t' ^ e_d (e_c the offset bit of axis c), and
     K0 u = W^T blockdiag(M) W u / 2^N. That holds when K0 is invariant
     under reflecting the element along each axis, as the stiffness of a box
-    element with an isotropic material is; any other K0 raises."""
+    element with an isotropic material is; a K0 whose coupling outside the
+    blocks exceeds ``REFLECTION_TOL[dtype]`` of its largest raises."""
     npe = 1 << ndim
     sign = [[(-1.0) ** bin(t & b).count("1") for b in range(npe)] for t in range(npe)]
     Wn = torch.tensor(sign, dtype=torch.float64, device=K0.device)
@@ -250,28 +281,45 @@ def reflection_blocks(K0: torch.Tensor, ndim: int) -> torch.Tensor:
     off = M.clone()
     off[rows, cols] = 0.0
     rel = float(off.abs().max() / M.abs().max())
-    if rel > REFLECTION_TOL:
+    if rel > REFLECTION_TOL[dtype]:
         raise ValueError(
             f"K0 is not invariant under the element's reflections (coupling "
             f"outside the reflection blocks {rel:.2e} of the largest > "
-            f"{REFLECTION_TOL:g}): the fp32 fine kernel takes box elements of "
-            f"an isotropic material")
-    return (B / npe).to(torch.float32).contiguous()
+            f"{REFLECTION_TOL[dtype]:g}): the {_FINE_NAMES[dtype]} take box "
+            f"elements of an isotropic material")
+    return (B / npe).to(dtype).contiguous()
 
 
 def _set_fine_blocks(K0: torch.Tensor, grid: Grid) -> None:
-    """Copy K0's reflection blocks into the constant memory of both fp32
-    fine kernels unless this very tensor, unchanged since, is already
-    there (once per problem, not per launch). Holding the tensor keeps its
-    memory from being reused."""
-    key = K0.device.index
+    """Copy K0's reflection blocks, in K0's dtype, into the constant memory
+    of both fine kernels of that dtype unless this very tensor, unchanged
+    since, is already there (once per problem, not per launch). Holding the
+    tensor keeps its memory from being reused."""
+    key = (K0.device.index, K0.dtype)
     held = _fine_k0.get(key)
     if held is not None and held[0] is K0 and held[1] == K0._version:
         return
-    B = reflection_blocks(K0, grid.ndim)
-    code = _lib.ndr_fine_set_blocks(B.data_ptr(), grid.ndim, _stream(K0.device))
-    _check_launch(code, "fp32 fine kernels (K0 blocks upload)")
+    B = reflection_blocks(K0, grid.ndim, K0.dtype)
+    set_blocks = getattr(_lib, f"ndr_fine_set_blocks_{_SUFFIX[K0.dtype]}")
+    code = set_blocks(B.data_ptr(), grid.ndim, _stream(K0.device))
+    _check_launch(code, f"{_FINE_NAMES[K0.dtype]} (K0 blocks upload)")
     _fine_k0[key] = (K0, K0._version)
+
+
+def _apply_fine(u, young, K0, grid: Grid, dtype: torch.dtype) -> torch.Tensor:
+    name = f"apply_k_fine_{_SUFFIX[dtype]}"
+    if not _on_cuda(u):
+        return apply_k_fine_plain(u, young, K0, grid)
+    _check_fine(u, young, K0, grid, dtype)
+    lib = _library()
+    f = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        _set_fine_blocks(K0, grid)
+        code = getattr(lib, f"ndr_{name}")(u.data_ptr(), young.data_ptr(), f.data_ptr(),
+                                           grid.ndim, *_dims3(grid), _stream(u.device))
+    _check_launch(code, name)
+    launches[name] += 1
+    return f
 
 
 def apply_k_fine_f32(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
@@ -279,60 +327,56 @@ def apply_k_fine_f32(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
     """f = K(E) u in fp32 on a degree-1 grid; K0 is (d_pe, d_pe) fp32 and
     must be invariant under the element's reflections
     (:func:`reflection_blocks`)."""
-    if not _on_cuda(u):
-        return apply_k_fine_plain(u, young, K0, grid)
-    _check_fine(u, young, K0, grid, torch.float32)
-    lib = _library()
-    f = torch.empty_like(u)
-    with torch.cuda.device(u.device):
-        _set_fine_blocks(K0, grid)
-        code = lib.ndr_apply_k_fine_f32(u.data_ptr(), young.data_ptr(), f.data_ptr(),
-                                        grid.ndim, *_dims3(grid), _stream(u.device))
-    _check_launch(code, "apply_k_fine_f32")
-    launches["apply_k_fine_f32"] += 1
-    return f
+    return _apply_fine(u, young, K0, grid, torch.float32)
 
 
 def apply_k_fine_f64(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
                      grid: Grid) -> torch.Tensor:
-    """f = K(E) u in float64 on a degree-1 grid; K0 is (d_pe, d_pe) f64.
-    The refinement loop's true residual."""
-    if not _on_cuda(u):
-        return apply_k_fine_plain(u, young, K0, grid)
-    _check_fine(u, young, K0, grid, torch.float64)
-    lib = _library()
-    f = torch.empty_like(u)
-    with torch.cuda.device(u.device):
-        code = lib.ndr_apply_k_fine_f64(u.data_ptr(), young.data_ptr(), K0.data_ptr(),
-                                        f.data_ptr(), grid.ndim, *_dims3(grid),
-                                        _stream(u.device))
-    _check_launch(code, "apply_k_fine_f64")
-    launches["apply_k_fine_f64"] += 1
-    return f
+    """f = K(E) u in float64 on a degree-1 grid, the refinement loop's true
+    residual; K0 is (d_pe, d_pe) float64 with the same symmetry, held to
+    the float64 bound (:func:`reflection_blocks`)."""
+    return _apply_fine(u, young, K0, grid, torch.float64)
 
 
-# ---------------------------------------------------------------------------
-# Element-centric fine-level apply, fp32 (replaces pallas_kernels.apply_k_pallas)
-# and float64 (replaces pallas_kernels.apply_k_pallas_df_flat)
-# ---------------------------------------------------------------------------
-
-def elem_geometry(grid: Grid, device: torch.device) -> Tuple[int, int, int, int]:
-    """:func:`apply_k_fine_elem_f32`'s block geometry on ``device`` (a
-    card): (slab, tile y, tile z, partials slots). Blocks of slab x tile y
-    x tile z elements (2-D: tile y x tile z over the grid's two axes) each
-    keep one slot of N fp32 partial forces per node of their shell (their
-    node box less its interior); only the slots of nodes on a block
-    boundary inside the grid are written."""
+def elem_geometry(grid: Grid, device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> Tuple[int, int, int, int]:
+    """The block geometry of the element-centric kernel of ``dtype`` on
+    ``device`` (a card): (slab, tile y, tile z, partials slots). Blocks of
+    slab x tile y x tile z elements (2-D: tile y x tile z over the grid's
+    two axes) each keep one slot of N partial forces of ``dtype`` per node
+    of their shell (their node box less its interior); only the slots of
+    nodes on a block boundary inside the grid are written."""
     lib = _library()
     index = torch.device(device).index
-    key = (torch.cuda.current_device() if index is None else index, tuple(grid.dims))
+    key = (torch.cuda.current_device() if index is None else index, tuple(grid.dims),
+           dtype)
     if key not in _elem_geometry:
         out = (ctypes.c_int * 4)()
         with torch.cuda.device(key[0]):
-            code = lib.ndr_fine_elem_geometry(grid.ndim, *_dims3(grid), out)
-        _check_launch(code, "apply_k_fine_elem_f32 (geometry)")
+            code = getattr(lib, f"ndr_fine_elem_geometry_{_SUFFIX[dtype]}")(
+                grid.ndim, *_dims3(grid), out)
+        _check_launch(code, f"apply_k_fine_elem_{_SUFFIX[dtype]} (geometry)")
         _elem_geometry[key] = tuple(out)
     return _elem_geometry[key]
+
+
+def _apply_fine_elem(u, young, K0, grid: Grid, dtype: torch.dtype) -> torch.Tensor:
+    name = f"apply_k_fine_elem_{_SUFFIX[dtype]}"
+    if not _on_cuda(u):
+        return apply_k_fine_plain(u, young, K0, grid)
+    _check_fine(u, young, K0, grid, dtype)
+    lib = _library()
+    with torch.cuda.device(u.device):
+        slab, ty, tz, slots = elem_geometry(grid, u.device, dtype)
+        part = torch.empty((slots, grid.ndim), dtype=dtype, device=u.device)
+        f = torch.empty_like(u)
+        _set_fine_blocks(K0, grid)
+        code = getattr(lib, f"ndr_{name}")(
+            u.data_ptr(), young.data_ptr(), part.data_ptr(), f.data_ptr(), grid.ndim,
+            *_dims3(grid), slab, ty, tz, _stream(u.device))
+    _check_launch(code, name)
+    launches[name] += 1
+    return f
 
 
 def apply_k_fine_elem_f32(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
@@ -341,55 +385,15 @@ def apply_k_fine_elem_f32(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor
     element's contraction once, in the reflection basis (K0 as for
     :func:`apply_k_fine_f32`), the forces on block faces stitched in a
     second pass."""
-    if not _on_cuda(u):
-        return apply_k_fine_plain(u, young, K0, grid)
-    _check_fine(u, young, K0, grid, torch.float32)
-    lib = _library()
-    with torch.cuda.device(u.device):
-        slab, ty, tz, slots = elem_geometry(grid, u.device)
-        part = torch.empty((slots, grid.ndim), dtype=torch.float32, device=u.device)
-        f = torch.empty_like(u)
-        _set_fine_blocks(K0, grid)
-        code = lib.ndr_apply_k_fine_elem_f32(
-            u.data_ptr(), young.data_ptr(), part.data_ptr(), f.data_ptr(), grid.ndim,
-            *_dims3(grid), slab, ty, tz, _stream(u.device))
-    _check_launch(code, "apply_k_fine_elem_f32")
-    launches["apply_k_fine_elem_f32"] += 1
-    return f
-
-
-#: x-elements per slab of the element-centric float64 kernel (one thread
-#: walks a slab of one trailing element column), the TPU kernel's default.
-ELEM_F64_SLAB = 8
-
-
-def elem_f64_partials_shape(grid: Grid, slab: int = ELEM_F64_SLAB):
-    """Shape of :func:`apply_k_fine_elem_f64`'s scratch: one partial force
-    field per (x-slab, slab node plane, trailing node offset, component),
-    over the trailing element dims."""
-    nslabs = -(-grid.dims[0] // slab)
-    return (nslabs, slab + 1, 1 << (grid.ndim - 1), grid.ndim) + tuple(grid.dims[1:])
+    return _apply_fine_elem(u, young, K0, grid, torch.float32)
 
 
 def apply_k_fine_elem_f64(u: torch.Tensor, young: torch.Tensor, K0: torch.Tensor,
                           grid: Grid) -> torch.Tensor:
-    """f = K(E) u in float64 on a degree-1 grid, element-centric: each
-    element's contraction once, summed through per-offset partials (the
-    refinement's true residual under ``fine_kernel="flat"``)."""
-    if not _on_cuda(u):
-        return apply_k_fine_plain(u, young, K0, grid)
-    _check_fine(u, young, K0, grid, torch.float64)
-    lib = _library()
-    part = torch.empty(elem_f64_partials_shape(grid), dtype=torch.float64,
-                       device=u.device)
-    f = torch.empty_like(u)
-    with torch.cuda.device(u.device):
-        code = lib.ndr_apply_k_fine_elem_f64(
-            u.data_ptr(), young.data_ptr(), K0.data_ptr(), part.data_ptr(),
-            f.data_ptr(), grid.ndim, *_dims3(grid), ELEM_F64_SLAB, _stream(u.device))
-    _check_launch(code, "apply_k_fine_elem_f64")
-    launches["apply_k_fine_elem_f64"] += 1
-    return f
+    """The float64 instance of :func:`apply_k_fine_elem_f32` (K0 as for
+    :func:`apply_k_fine_f64`): the refinement's true residual under
+    ``fine_kernel="flat"``."""
+    return _apply_fine_elem(u, young, K0, grid, torch.float64)
 
 
 #: The solver's ``fine_kernel`` settings: the JAX package's fine-kernel

@@ -627,10 +627,10 @@ class MGSolverSettings:
     # coarsest solve: "cholesky", "ns" or "auto" (ns for fp32
     # hierarchies up to NS_AUTO_MAX_DOFS, else cholesky)
     coarse_solver: str = "auto"
-    # fine-level kernels with use_kernels: "flat32" (apply_k_fine_f32.cu's
-    # fp32 apply, node-centric f64 residual), "variant" (element-centric
-    # fp32) or "flat" (element-centric f64 residual); the JAX package's
-    # NDR_FINE_KERNEL switch
+    # fine-level kernels with use_kernels: "flat32" (fine_stream.cu's
+    # streamed apply in fp32 and for the float64 residual), "variant"
+    # (fine_elem.cu's element-centric fp32) or "flat" (element-centric
+    # float64 residual); the JAX package's NDR_FINE_KERNEL switch
     fine_kernel: str = "flat32"
 
 

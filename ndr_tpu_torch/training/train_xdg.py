@@ -73,8 +73,8 @@ def main(argv=None) -> XDGResult:
                    help="hand-written CUDA stiffness kernels in the MG solve "
                         "(auto: on for CUDA tensors; off: plain torch ops)")
     p.add_argument("--fine-kernel", default="flat32", choices=list(kernels.FINE_KERNELS),
-                   help="fine-level kernels: flat32 (default fp32 apply, "
-                        "node-centric f64 residual), variant "
+                   help="fine-level kernels: flat32 (default: the streamed "
+                        "apply in fp32 and for the f64 residual), variant "
                         "(element-centric fp32 apply), flat (element-centric "
                         "float64 residual)")
     p.add_argument("--smoother", default="chebyshev", choices=["chebyshev", "gs"],

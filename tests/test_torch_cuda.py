@@ -116,6 +116,17 @@ def test_cached_kernel_matches_twin(device, prob_path, dims):
     assert kernels.launches["apply_k_cached_f32"] == len(stacks)
 
 
+def _check_partials_only_on_block_faces(device, prob_path, dims, dtype):
+    _, grid = problem_from_config(load_problem(prob_path), dims=dims, device=device)
+    slab, ty, tz, slots = kernels.elem_geometry(grid, device, dtype)
+    tiles = (slab, ty, tz)[-grid.ndim:]   # elements per block along each axis
+    blocks = int(np.prod([-(-n // t) for n, t in zip(dims, tiles)]))
+    shell = int(np.prod([t + 1 for t in tiles]) - np.prod([t - 1 for t in tiles]))
+    assert slots == blocks * shell
+    if dims == (192, 96, 96):
+        assert slots < grid.num_nodes
+
+
 @pytest.mark.parametrize("prob_path,dims", [CASES[-1], CASES[5],
                                              ("problems/3d/bridge.json", (192, 96, 96))])
 def test_elem_f32_partials_only_on_block_faces(device, prob_path, dims):
@@ -124,14 +135,15 @@ def test_elem_f32_partials_only_on_block_faces(device, prob_path, dims):
     192x96x96 that is less than the f field (a partial plane per slab
     plane, trailing offset and component, as the TPU kernel keeps, is
     ~4.5x it)."""
-    _, grid = problem_from_config(load_problem(prob_path), dims=dims, device=device)
-    slab, ty, tz, slots = kernels.elem_geometry(grid, device)
-    tiles = (slab, ty, tz)[-grid.ndim:]   # elements per block along each axis
-    blocks = int(np.prod([-(-n // t) for n, t in zip(dims, tiles)]))
-    shell = int(np.prod([t + 1 for t in tiles]) - np.prod([t - 1 for t in tiles]))
-    assert slots == blocks * shell
-    if dims == (192, 96, 96):
-        assert slots < grid.num_nodes
+    _check_partials_only_on_block_faces(device, prob_path, dims, torch.float32)
+
+
+@pytest.mark.parametrize("prob_path,dims", [CASES[-1], CASES[5],
+                                             ("problems/3d/bridge.json", (192, 96, 96))])
+def test_elem_f64_partials_only_on_block_faces(device, prob_path, dims):
+    """The same for the float64 kernel, under its own geometry (its blocks
+    hold twice the registers and shared memory of the fp32 ones)."""
+    _check_partials_only_on_block_faces(device, prob_path, dims, torch.float64)
 
 
 def test_kernels_refuse_f64_hierarchy(device):
@@ -158,24 +170,62 @@ def test_kernels_refuse_f64_hierarchy(device):
     assert kernels.launches == {name: 0 for name in kernels.launches}
 
 
-@pytest.mark.parametrize("fine_kernel", ["flat32", "variant"])
-def test_fp32_fine_kernels_refuse_asymmetric_k0(device, fine_kernel):
-    """Both fp32 fine kernels work in the element's reflection basis and
-    raise on a K0 without that symmetry, rather than apply the wrong K."""
+@pytest.mark.parametrize("fine_kernel,dtype,rel", [
+    ("flat32", torch.float32, 0.1), ("variant", torch.float32, 0.1),
+    ("flat32", torch.float64, 0.1), ("flat", torch.float64, 0.1),
+    ("flat32", torch.float64, 1e-9), ("flat", torch.float64, 1e-9),
+])
+def test_fine_kernels_refuse_asymmetric_k0(device, fine_kernel, dtype, rel):
+    """The four fine kernels work in the element's reflection basis and
+    raise on a K0 without that symmetry, rather than apply the wrong K;
+    the float64 ones already on a coupling of 1e-9 of K0's largest, which
+    their 1e-12 accuracy could not drop."""
     prob, grid = problem_from_config(load_problem(CASES[1][0]), dims=CASES[1][1],
                                      device=device)
     rng = np.random.default_rng(6)
-    u = torch.tensor(rng.standard_normal(grid.nodes_per_dim + (3,)),
-                     dtype=torch.float32, device=device)
-    young = torch.ones(grid.dims, device=device)
-    K0 = prob.K0.float().clone()
-    K0[0, 4] += 0.1 * float(K0.abs().max())   # a coupling outside the blocks
+    u = torch.tensor(rng.standard_normal(grid.nodes_per_dim + (3,)), dtype=dtype,
+                     device=device)
+    young = torch.ones(grid.dims, dtype=dtype, device=device)
+    K0 = prob.K0.to(dtype).clone()
+    K0[0, 4] += rel * float(K0.abs().max())   # a coupling outside the blocks
     K0[4, 0] = K0[0, 4]
-    fine32 = kernels.fine_kernels(fine_kernel)[0]
+    fine = kernels.fine_kernels(fine_kernel)[dtype == torch.float64]
     kernels.reset_launches()
     with pytest.raises(ValueError, match="reflections"):
-        fine32(u, young, K0, grid)
+        fine(u, young, K0, grid)
     assert kernels.launches == {name: 0 for name in kernels.launches}
+
+
+@pytest.mark.parametrize("fine_kernel,fine64", [("flat32", "apply_k_fine_f64"),
+                                                ("flat", "apply_k_fine_elem_f64")])
+def test_f64_blocks_uploaded_once_per_problem(device, monkeypatch, fine_kernel, fine64):
+    """Two cold solves of one problem with kernels on: each runs the float64
+    residual at least twice, and the float64 reflection blocks are built
+    and uploaded once for both (the fp32 ones once per solve, whose fp32 K0
+    is a fresh tensor)."""
+    built = []
+
+    def counted(K0, ndim, dtype=torch.float32):
+        built.append(dtype)
+        return blocks(K0, ndim, dtype)
+
+    blocks = kernels.reflection_blocks
+    monkeypatch.setattr(kernels, "reflection_blocks", counted)
+    prob, grid = problem_from_config(load_problem(CASES[3][0]), dims=CASES[3][1],
+                                     dtype=torch.float32, device=device)
+    rho = torch.tensor(np.random.default_rng(7).uniform(0.05, 1.0, grid.dims),
+                       dtype=torch.float32, device=device)
+    settings = mg.MGSolverSettings(num_levels=2, smoother="chebyshev", use_kernels=True,
+                                   fine_kernel=fine_kernel)
+    solve = mg.make_mg_solver(prob, settings)
+    kernels.reset_launches()
+    for _ in range(2):
+        u, _ = solve(rho)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(u).all())
+    assert kernels.launches[fine64] >= 4
+    assert built.count(torch.float64) == 1
+    assert built.count(torch.float32) == 2
 
 
 def test_profile_oc_small(device, capsys):

@@ -94,10 +94,10 @@ def test_elem_f64_twin_matches_pallas_df_flat(prob_path, dims):
 
 @pytest.mark.parametrize("prob_path,dims", [(MBB, (12, 6)), (CANT, (6, 4, 2))])
 def test_elem_wrappers_take_twins_on_cpu(prob_path, dims):
-    """A CPU tensor goes to the plain twin: same result, no launch. The
-    float64 kernel's scratch holds one partial per (slab, plane, offset,
-    component); the fp32 kernel's, whose geometry the card picks, is
-    checked on the card (``tests/test_torch_cuda.py``)."""
+    """A CPU tensor goes to the plain twin: same result, no launch, and no
+    block form asked of K0 (this random one has none, which the kernels on
+    the card would refuse). The scratch of both kernels, whose geometry
+    the card picks, is checked on the card (``tests/test_torch_cuda.py``)."""
     _, grid = t_problem_from_config(t_load_problem(prob_path), dims=dims,
                                     device="cpu")
     rng = np.random.default_rng(4)
@@ -113,8 +113,13 @@ def test_elem_wrappers_take_twins_on_cpu(prob_path, dims):
                                    kernels.apply_k_fine_plain(*args, grid),
                                    rtol=0, atol=0)
     assert kernels.launches == {name: 0 for name in kernels.launches}
-    shape = kernels.elem_f64_partials_shape(grid, slab=4)
-    assert shape == ((dims[0] + 3) // 4, 5, 1 << (grid.ndim - 1), grid.ndim) + dims[1:]
+    with pytest.raises(ValueError, match="float64 fine kernels"):
+        kernels.reflection_blocks(K0, grid.ndim, torch.float64)
+    f64 = kernels.apply_k_fine_elem_f64(u, young, K0, grid)
+    assert f64.dtype == torch.float64 and f64.device.type == "cpu"
+    torch.testing.assert_close(f64, kernels.apply_k_fine_plain(u, young, K0, grid),
+                               rtol=0, atol=0)
+    assert kernels.launches["apply_k_fine_elem_f64"] == 0
 
 
 def test_fine_kernels_dispatch():

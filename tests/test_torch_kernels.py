@@ -19,6 +19,7 @@ from ndr_tpu.fem import pallas_kernels as pk
 from ndr_tpu.fem.simulator import problem_from_config as j_problem_from_config
 from ndr_tpu.io.problem import load_problem
 from ndr_tpu_torch.fem import kernels
+from ndr_tpu_torch.fem import operators as tops
 from ndr_tpu_torch.grid import Grid as TGrid
 
 CASES = [
@@ -129,9 +130,9 @@ def test_fine_f64_twin_matches_pallas_df(prob_path, dims):
 
 
 def _reflection_apply(B: torch.Tensor, U: torch.Tensor, ndim: int) -> torch.Tensor:
-    """K0 U for element DOF columns U (d_pe, E) as the fp32 fine kernel
-    computes it: Walsh-Hadamard transform over the element's nodes, the
-    2^N reflection blocks, the transform back (B carries the 1/2^N)."""
+    """K0 U for element DOF columns U (d_pe, E) as the fine kernels compute
+    it: Walsh-Hadamard transform over the element's nodes, the 2^N
+    reflection blocks, the transform back (B carries the 1/2^N)."""
     npe = 1 << ndim
     V = U.reshape(npe, ndim, -1)
     sign = torch.tensor([[(-1.0) ** bin(t & b).count("1") for b in range(npe)]
@@ -145,18 +146,20 @@ def _reflection_apply(B: torch.Tensor, U: torch.Tensor, ndim: int) -> torch.Tens
     return torch.einsum("tb,tde->bde", sign, Wh).reshape(npe * ndim, -1)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.float64, 1e-13)])
 @pytest.mark.parametrize("prob_path,dims", CASES + [("problems/3d/bridge.json", (13, 7, 5))])
-def test_reflection_blocks_reproduce_k0(prob_path, dims):
-    """The fp32 fine kernel's block form of K0 (non-cubic voxels too)
-    reproduces K0 u_e to the fp32 rounding of its blocks."""
+def test_reflection_blocks_reproduce_k0(prob_path, dims, dtype, tol):
+    """The fine kernels' block form of K0 (non-cubic voxels too), in the
+    kernels' dtype, reproduces K0 u_e to that dtype's rounding of its
+    blocks (applied in float64)."""
     prob, grid, rng = _setup(prob_path, dims, jnp.float64, 7)
     K0 = torch.tensor(np.asarray(prob.K0))
-    B = kernels.reflection_blocks(K0, grid.ndim)
-    assert B.dtype == torch.float32 and B.shape == (grid.nodes_per_elem, grid.ndim, grid.ndim)
+    B = kernels.reflection_blocks(K0, grid.ndim, dtype)
+    assert B.dtype == dtype and B.shape == (grid.nodes_per_elem, grid.ndim, grid.ndim)
     U = torch.tensor(rng.standard_normal((K0.shape[0], 64)))
     ref = K0 @ U
     out = _reflection_apply(B.double(), U, grid.ndim)
-    assert float((out - ref).abs().max() / ref.abs().max()) < 1e-6
+    assert float((out - ref).abs().max() / ref.abs().max()) < tol
 
 
 def test_reflection_blocks_refuse_other_k0():
@@ -167,6 +170,39 @@ def test_reflection_blocks_refuse_other_k0():
     K0[0, 5] += 1e-3 * float(K0.abs().max())
     with pytest.raises(ValueError, match="reflections"):
         kernels.reflection_blocks(K0, grid.ndim)
+
+
+@pytest.mark.parametrize("prob_path,dims", [CASES[0], CASES[1]])
+def test_reflection_blocks_hold_float64_to_its_own_bound(prob_path, dims):
+    """A coupling outside the blocks of 1e-9 of K0's largest is below the
+    fp32 kernels' rounding, so their blocks take it; the float64 kernels,
+    held to 1e-12, would drop it, so their blocks refuse it."""
+    prob, grid, _ = _setup(prob_path, dims, jnp.float64, 9)
+    K0 = torch.tensor(np.asarray(prob.K0))
+    K0[0, 4] += 1e-9 * float(K0.abs().max())
+    K0[4, 0] = K0[0, 4]
+    assert kernels.reflection_blocks(K0, grid.ndim, torch.float32).dtype == torch.float32
+    with pytest.raises(ValueError, match="float64 fine kernels"):
+        kernels.reflection_blocks(K0, grid.ndim, torch.float64)
+
+
+@pytest.mark.parametrize("prob_path,dims", [CASES[0], CASES[2]])
+def test_float64_block_apply_matches_jax_apply_k(prob_path, dims):
+    """The float64 kernels' arithmetic: elements gathered, K0 u_e in the
+    reflection basis from the float64 blocks, scaled by young, scattered,
+    against the JAX package's ``operators.apply_k`` in float64."""
+    prob, jgrid, rng = _setup(prob_path, dims, jnp.float64, 10)
+    grid = _port_grid(jgrid)
+    young = prob.young(jnp.asarray(rng.uniform(1e-3, 1.0, jgrid.dims)))
+    u = 1e3 * rng.standard_normal(grid.nodes_per_dim + (grid.ndim,))
+    ref = jops.apply_k(jnp.asarray(u), young, prob.K0, jgrid)
+    B = kernels.reflection_blocks(torch.tensor(np.asarray(prob.K0)), grid.ndim,
+                                  torch.float64)
+    U = tops._gather_dofs(torch.tensor(u), grid)
+    F = _reflection_apply(B, U, grid.ndim) * torch.tensor(np.asarray(young)).reshape(-1)
+    out = tops._scatter_forces(F.reshape(grid.nodes_per_elem, grid.ndim, *grid.dims), grid)
+    assert out.dtype == torch.float64 and np.asarray(ref).dtype == np.float64
+    assert _rel(out, ref) < 1e-13
 
 
 @pytest.mark.parametrize("prob_path,dims", CASES)
