@@ -18,7 +18,15 @@ each with the launch counters set to 0 just before and read just after:
      constrained_sigmoid, the 1024/512x4 MLP, with ``--fine-kernel
      variant`` and with the default ``flat32``;
   3. neural TO, the bench configuration: bridge 64x32x16, mgl=2,
-     maxed_barrier, 1024/512x4, ``--fine-kernel flat``, and kernels off.
+     maxed_barrier, 1024/512x4, ``--fine-kernel flat``, and kernels off;
+  4. classic SIMP-OC with the multicolor Gauss-Seidel smoother
+     (``--smoother gs``), cantilever 192x96x96, mgl=3, kernels on and off,
+     held to path 1's Chebyshev run at step 0;
+  5. the mesh-independence evaluation (``eval_fourfeat``) of path 3's
+     trained network at 128x64x32 (mgl=3) and 256x128x64 (mgl=4), 2x and
+     4x its training grid;
+  6. ``eval_voxelfem`` on path 4's final density upsampled to the
+     cantilever's production grid 256x128x128 (mgl=5).
 
 Any failed check exits non-zero. The last line of standard output is one
 JSON object naming the device; the line before it, the card's name and
@@ -39,6 +47,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import time
 import types
 
 import torch
@@ -68,6 +77,18 @@ TEST_SHAPES = [("problems/2d/mbb_beam.json", (12, 6)),
 TOL_F32 = 1e-5      # max|f - f_twin| / max|f_twin|: summation order differs
 TOL_F64 = 1e-12
 TOL_ON_OFF = 1e-4   # the solver's tolerance; both runs are f64-refined to it
+# GS against Chebyshev at step 0: two smoothers, each solve stopped at the
+# 1e-4 residual test
+TOL_GS_CHEB = 1e-3
+GS_ITERS = 3
+# the evaluator's CG cap per pass; the counts printed are summed over the
+# refinement passes, so a sum below it means no pass reached it
+EVAL_CG_CAP = 200
+# (test grid, mgl): 2x and 4x the bench grid, its aspect kept (the CLI's
+# mgl=1 would factor a 64x32x16 coarsest grid densely: 109k DoFs, 48 GB)
+FOURFEAT_EVALS = (((128, 64, 32), 3), ((256, 128, 64), 4))
+# the cantilever's production grid (tests/test_golden.py), level 1 cached
+VOXEL_EVAL = ((256, 128, 128), 5)
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -107,13 +128,15 @@ def check(cond: bool, msg: str):
 def port_modules() -> types.SimpleNamespace:
     """Every module of the port this script uses (imported here, not at the
     top, so that the script fails cleanly where the port is missing)."""
+    from ndr_tpu_torch.eval import eval_fourfeat, eval_voxelfem
     from ndr_tpu_torch.fem import kernels, multigrid, simulator
     from ndr_tpu_torch.io import problem
     from ndr_tpu_torch.training import train_voxelfem, train_xdg
     from ndr_tpu_torch.utils import torch_setup
     return types.SimpleNamespace(kernels=kernels, mg=multigrid, simulator=simulator,
                                  problem=problem, train_voxelfem=train_voxelfem,
-                                 train_xdg=train_xdg, torch_setup=torch_setup)
+                                 train_xdg=train_xdg, torch_setup=torch_setup,
+                                 eval_fourfeat=eval_fourfeat, eval_voxelfem=eval_voxelfem)
 
 
 def gpu_line() -> str:
@@ -447,33 +470,58 @@ def run_path(m, label: str, fn, expect: tuple):
     return result, counts, peak
 
 
-def classic(m, kernels_mode: str):
+def classic(m, kernels_mode: str, smoother: str = "chebyshev", iters: int = ITERS):
+    jid = f"classic_{kernels_mode}" if smoother == "chebyshev" else \
+        f"classic_{smoother}_{kernels_mode}"
     argv = ["--prob", PROB, "--grid", json.dumps(list(GRID)), "--mgl", str(MGL),
-            "--iter", str(ITERS), "--device", "cuda", "--kernels", kernels_mode,
-            "--out", OUT_DIR, "--jid", f"classic_{kernels_mode}"]
+            "--iter", str(iters), "--device", "cuda", "--kernels", kernels_mode,
+            "--smoother", smoother, "--out", OUT_DIR, "--jid", jid]
     with captured_stderr() as buf:
         result = m.train_voxelfem.main(argv)
     text = buf.getvalue()
     steps = [(int(i), float(c), int(n)) for i, c, n in CLASSIC_RE.findall(text)]
-    check([s[0] for s in steps] == list(range(ITERS)),
-          f"classic kernels {kernels_mode}: step lines {steps}")
+    check([s[0] for s in steps] == list(range(iters)),
+          f"{jid}: step lines {steps}")
     for i, c, n in steps:
         check(math.isfinite(c) and c > 0, f"classic step {i}: compliance {c}")
         check(n < CG_CAP, f"classic step {i}: cg_iters {n} hit the cap {CG_CAP}")
     check('Compliance loss of binary densities for "' in text
           and "Final step, Compliance loss" in text,
-          f"classic kernels {kernels_mode}: final reference-format lines missing")
+          f"{jid}: final reference-format lines missing")
     check(math.isfinite(result.compliance) and math.isfinite(result.binary_compliance),
-          "classic final compliance not finite")
+          f"{jid}: final compliance not finite")
     check(result.densities.shape == GRID, f"densities shape {result.densities.shape}")
     for f in (".vtr", "_densities.npy", "_history.json"):
-        path = os.path.join(OUT_DIR, f"classic_{kernels_mode}{f}")
+        path = os.path.join(OUT_DIR, f"{jid}{f}")
         check(os.path.exists(path), f"artifact {path} missing")
-    s_per_iter = statistics.median(result.step_seconds[1:5])
-    print(f"classic kernels {kernels_mode}: compliance by step "
-          f"{[c for _, c, _ in steps]}, cg_iters {[n for *_, n in steps]}, "
-          f"s/OC-iter (median of steps 1-4) {s_per_iter:.4f}")
+    s_per_iter = statistics.median(result.step_seconds[1:])
+    print(f"{jid}: compliance by step {[c for _, c, _ in steps]}, cg_iters "
+          f"{[n for *_, n in steps]}, s/OC-iter (median of steps 1-{iters - 1}) "
+          f"{s_per_iter:.4f}")
     return steps, s_per_iter
+
+
+def evaluation(label: str, cli, argv, res_key: str, dims):
+    """One eval CLI run on the card: its JSON line holds finite positive
+    compliances at ``dims`` and a binary volume in [0, 1]; returns
+    (JSON line, result, wall seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        result = cli.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(line[res_key] == list(dims), f"{label}: resolution {line[res_key]}")
+    for k in ("compliance", "binary_compliance"):
+        check(math.isfinite(line[k]) and line[k] > 0, f"{label}: {k} {line[k]}")
+    check(0.0 <= line["binary_volume"] <= 1.0, f"{label}: b-vol {line['binary_volume']}")
+    check(max(result.cg_iters) < EVAL_CG_CAP,
+          f"{label}: cg_iters {result.cg_iters} hit the cap {EVAL_CG_CAP}")
+    print(f"{label}: compliance {line['compliance']}, binary {line['binary_compliance']}, "
+          f"b-vol {line['binary_volume']}, cg_iters (soft, binary) {result.cg_iters}, "
+          f"wall {wall:.2f} s")
+    return line, result, wall
 
 
 def neural(m, jid: str, grid, mgl: int, vcs: str, steps: int, extra):
@@ -580,10 +628,55 @@ def main():
         timings.append(f"neural {BENCH_GRID} mgl=2 fine-kernel flat: s/step {s_on:.4f} "
                        f"(peak {peak:.2f} GiB); kernels off: s/step {s_off:.4f} "
                        f"(peak {peak_off:.2f} GiB)")
+
+        print(f"== 7. classic GS: {PROB} {GRID} mgl={MGL} --smoother gs, "
+              f"{GS_ITERS} OC steps")
+        all4 = ("apply_k_fine_f32", "apply_k_cached_f32", "cached_stencil",
+                "apply_k_fine_f64")
+        (gs_on, t_gs_on), counts, peak = run_path(
+            m, "classic gs on", lambda: classic(m, "on", "gs", GS_ITERS), all4)
+        total = {k: total[k] + counts[k] for k in total}
+        (gs_off, t_gs_off), _, peak_off = run_path(
+            m, "classic gs off", lambda: classic(m, "off", "gs", GS_ITERS), ())
+        agree("classic gs step-0 compliance on/off", gs_on[0][1], gs_off[0][1])
+        rel = abs(gs_on[0][1] - steps_on[0][1]) / abs(steps_on[0][1])
+        print(f"classic step-0 compliance gs/chebyshev: {gs_on[0][1]} vs "
+              f"{steps_on[0][1]}, rel {rel:.3e}")
+        check(rel < TOL_GS_CHEB, f"classic gs/chebyshev step 0 differ: rel {rel:.3e}")
+        timings.append(f"classic gs {GRID} mgl={MGL}: s/OC-iter on {t_gs_on:.4f} "
+                       f"(peak {peak:.2f} GiB), off {t_gs_off:.4f} (peak {peak_off:.2f} GiB)")
+
+        print(f"== 8. eval_fourfeat: phase 6's network ({BRIDGE}, maxed_barrier) at "
+              f"{[d for d, _ in FOURFEAT_EVALS]}")
+        for dims, mgl in FOURFEAT_EVALS:
+            argv = ["--prob", BRIDGE, "--checkpoint", os.path.join(OUT_DIR, "bench_flat.npz"),
+                    "--grid", json.dumps(list(dims)), "--vcs", "maxed_barrier",
+                    "--mgl", str(mgl)]
+            (_, _, wall), counts, peak = run_path(
+                m, f"eval_fourfeat {dims}",
+                lambda argv=argv, dims=dims: evaluation(
+                    f"eval_fourfeat {dims} mgl={mgl}", m.eval_fourfeat, argv,
+                    "test_resolution", dims), all4)
+            total = {k: total[k] + counts[k] for k in total}
+            timings.append(f"eval_fourfeat {dims} mgl={mgl}: wall {wall:.2f} s "
+                           f"(peak {peak:.2f} GiB)")
+
+        dims, mgl = VOXEL_EVAL
+        print(f"== 9. eval_voxelfem: phase 7's final density upsampled to {dims}, mgl={mgl}")
+        argv = ["--prob", PROB, "--densities",
+                os.path.join(OUT_DIR, "classic_gs_on_densities.npy"),
+                "--upsample", json.dumps(list(dims)), "--mgl", str(mgl)]
+        (_, _, wall), counts, peak = run_path(
+            m, f"eval_voxelfem {dims}",
+            lambda: evaluation(f"eval_voxelfem {dims} mgl={mgl}", m.eval_voxelfem, argv,
+                               "resolution", dims), all4)
+        total = {k: total[k] + counts[k] for k in total}
+        timings.append(f"eval_voxelfem {dims} mgl={mgl}: wall {wall:.2f} s "
+                       f"(peak {peak:.2f} GiB)")
     finally:
         shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    print("== 7. summary")
+    print("== 10. summary")
     print("launches over the paths:", total)
     for name, n in total.items():
         check(n > 0, f"{name} was launched by no path")

@@ -13,6 +13,7 @@ nothing of ``ndr_tpu``: the NumPy-only modules it needs (``grid``,
   ndr_tpu_torch.models    the Fourier-feature MLP
   ndr_tpu_torch.ops       density filters, volume constraint and satisfiers
   ndr_tpu_torch.training  the classic SIMP-OC and neural-TO trainers, CLIs
+  ndr_tpu_torch.eval      evaluation at a test resolution, its CLIs
   ndr_tpu_torch.utils     device/precision setup, timers, checkpoints
 """
 

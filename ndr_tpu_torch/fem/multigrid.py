@@ -1,11 +1,13 @@
 """Geometric multigrid preconditioned CG on the voxel grid
-(counterpart of ``ndr_tpu/fem/multigrid.py``, main-path subset).
+(counterpart of ``ndr_tpu/fem/multigrid.py``).
 
 The same hierarchy as the JAX package: 2x coarsening with Galerkin
 per-element stiffnesses, Dirichlet coarsening by the boundary-face rule,
-Chebyshev smoothing on D^-1 K with the guaranteed pencil bound for
-lambda_max, FMG/V-cycle preconditioning, a Newton–Schulz or Cholesky
-coarsest solve, and float64 iterative refinement around fp32 MGPCG.
+multicolor Gauss-Seidel or Chebyshev smoothing (on D^-1 K with the
+guaranteed pencil bound for lambda_max), FMG/V-cycle preconditioning, a
+Newton–Schulz or Cholesky coarsest solve, and float64 iterative
+refinement around fp32 MGPCG. A level whose Galerkin Ke would exceed
+``ke_cache_limit_bytes`` is a "transfer" level, applied as R K_finer P.
 
 On CUDA with kernels on, the fine level applies K through the fp32 fine
 kernel, every non-coarsest cached level through
@@ -13,11 +15,13 @@ kernel, every non-coarsest cached level through
 per hierarchy build by :func:`kernels.cached_stencil`), and the
 refinement's true residual through the float64 fine kernel. Which fine
 kernels (node- or element-centric) is the ``fine_kernel`` setting, with
-the JAX package's dispatch (:func:`kernels.fine_kernels`).
+the JAX package's dispatch (:func:`kernels.fine_kernels`). The GS sweep
+itself is torch ops: each colour is updated on its own stride-2
+sub-lattice, and its residual update K du reads only what touches that
+colour (:func:`apply_k_parity`).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the multicolor Gauss-Seidel smoother, the "transfer" level kind
-and a lagged preconditioner. lambda_max is the pencil bound alone, as
+item): a lagged preconditioner. lambda_max is the pencil bound alone, as
 with the JAX default ``lmax_power_iters=0`` (power iteration is not
 ported).
 """
@@ -37,11 +41,10 @@ from ndr_tpu_torch.fem import operators as ops
 from ndr_tpu_torch.fem import solvers
 from ndr_tpu_torch.fem.simulator import FEMProblem
 
-_TODO_GS = "ROADMAP.md Queue 1 item 11 (multicolor GS smoother)"
-_TODO_LAG = "ROADMAP.md Queue 1 item 11 (lagged preconditioner)"
-_TODO_TRANSFER = "ROADMAP.md Queue 1 item 11 (transfer-kind levels)"
+_TODO_LAG = "ROADMAP.md Queue 1 item 3 (lagged preconditioner)"
 _TODO_X64 = "ROADMAP.md Queue 2 item 6 (float64 end to end on CUDA)"
-_TODO_DEGREE2 = "ROADMAP.md Queue 1 item 11 (degree-2 paths)"
+_TODO_DEGREE2 = "ROADMAP.md Queue 1 item 4 (degree-2 paths)"
+SMOOTHERS = ("gs", "chebyshev")
 
 
 # ---------------------------------------------------------------------------
@@ -158,12 +161,27 @@ def _pencil_lmax_bound(stack: np.ndarray, ndim: int) -> float:
     return float(vals.real.max())
 
 
+def parity_colors(grid: Grid) -> Tuple[Tuple[int, ...], ...]:
+    """The (degree+1)^N node colour classes of the multicolor GS sweep,
+    each as the residue of a node's index mod degree+1 along every dim,
+    in C order (the order of the JAX package's ``_parity_color_masks``).
+    Two nodes share an element only if their indices differ by less than
+    degree+1 in every dim, so the nodes of one class are independent."""
+    return tuple(itertools.product(range(grid.degree + 1), repeat=grid.ndim))
+
+
+def color_slices(grid: Grid, color) -> Tuple[slice, ...]:
+    """The strided node slices of one colour class (its sub-lattice)."""
+    return tuple(slice(c, None, grid.degree + 1) for c in color)
+
+
 @dataclasses.dataclass(frozen=True)
 class MGLevel:
     """Static per-level data."""
 
     grid: Grid
     dirichlet_mask: torch.Tensor        # nodes + (N,) bool, on the device
+    colors: Tuple[Tuple[int, ...], ...]  # GS colour classes (parity_colors)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,7 +191,10 @@ class MGConfig:
     levels: Tuple[MGLevel, ...]
     K0: np.ndarray                      # fine-level full-density Ke (f64)
     c_stacks: dict                      # {l: ((2^l)^N, d, d)} deep K0 stacks
+    diag_stacks: dict                   # {l: ((2^l)^N, npe, N, N)} their diag blocks
     lmax_bounds: dict                   # {l: bound on lambda_max(D^-1 K)}
+    # levels whose Galerkin Ke would exceed this many (fp32) bytes are
+    # "transfer" levels, applied as R K_finer P
     ke_cache_limit_bytes: int = 1400 * 2**20
 
     @property
@@ -201,15 +222,21 @@ def build_mg_config(prob: FEMProblem, num_levels: int,
             "use num_levels=0 (block-Jacobi PCG) for higher degrees")
     grid = prob.grid
     mask = prob.dirichlet_mask.cpu().numpy()
-    levels = [MGLevel(grid, prob.dirichlet_mask)]
+    levels = [MGLevel(grid, prob.dirichlet_mask, parity_colors(grid))]
     for _ in range(num_levels):
         grid = grid.coarsened()
         mask = coarsen_dirichlet_mask(mask)
-        levels.append(MGLevel(grid, torch.as_tensor(mask, device=prob.device)))
+        levels.append(MGLevel(grid, torch.as_tensor(mask, device=prob.device),
+                              parity_colors(grid)))
     ndim = prob.grid.ndim
+    npe = 1 << ndim
     K0 = prob.K0.cpu().numpy()
     c_stacks = {l: deep_coarsened_k0s(K0, ndim, l)
                 for l in range(1, num_levels + 1)}
+    diag_stacks = {}
+    for l, C in c_stacks.items():
+        Cr = C.reshape(-1, npe, ndim, npe, ndim)
+        diag_stacks[l] = np.stack([Cr[:, a, :, a, :] for a in range(npe)], axis=1)
     lmax_bounds = {0: _pencil_lmax_bound(K0, ndim)}
     for l in range(1, num_levels + 1):
         lmax_bounds[l] = _pencil_lmax_bound(c_stacks[l], ndim)
@@ -217,6 +244,7 @@ def build_mg_config(prob: FEMProblem, num_levels: int,
         levels=tuple(levels),
         K0=K0,
         c_stacks=c_stacks,
+        diag_stacks=diag_stacks,
         lmax_bounds=lmax_bounds,
         ke_cache_limit_bytes=ke_cache_limit_bytes,
     )
@@ -270,6 +298,17 @@ def build_level_ke(cfg: MGConfig, young: torch.Tensor, level: int) -> torch.Tens
     pooled = pooled_young(young, level)                        # (dims_l..., R)
     Ke = pooled.reshape(-1, C.shape[0]) @ C.reshape(C.shape[0], d * d)
     return Ke.reshape(pooled.shape[:-1] + (d, d))
+
+
+def build_level_ke_diag(cfg: MGConfig, young: torch.Tensor, level: int) -> torch.Tensor:
+    """Only the per-element (local-node) diagonal blocks of the level-l
+    Ke, (dims_l..., npe, N, N): the smoother diagonals of a level whose
+    full Ke is not materialized."""
+    D = torch.as_tensor(cfg.diag_stacks[level], dtype=young.dtype,
+                        device=young.device)                   # (R, npe, N, N)
+    pooled = pooled_young(young, level)                        # (dims_l..., R)
+    out = pooled.reshape(-1, D.shape[0]) @ D.reshape(D.shape[0], -1)
+    return out.reshape(pooled.shape[:-1] + D.shape[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -332,19 +371,24 @@ class LevelState:
     per-element stack ``Ke`` (dims..., d, d), or, where the cached-level
     kernel serves the level, only as the assembled node ``stencil``
     (:func:`kernels.stencil_shape`, 3^N N^2 values per node; never both:
-    either is the level's largest array).
+    either is the level's largest array);
+    kind "transfer": Ke would exceed ``ke_cache_limit_bytes``, so the
+    level applies R K_parent P, exactly the Galerkin operator, through its
+    finer ``parent`` level.
     """
 
     grid: Grid
     dirichlet_mask: torch.Tensor
+    colors: Tuple[Tuple[int, ...], ...]  # GS colour classes (parity_colors)
     young: Optional[torch.Tensor]       # level 0 only
     Ke: Optional[torch.Tensor]          # cached levels without a stencil
     Minv_rows: torch.Tensor             # nodes + (N, N) diag blocks of K
     K0: Optional[torch.Tensor]          # level 0 only, in young's dtype
-    Dinv: Optional[torch.Tensor] = None
-    lmax: Optional[float] = None
+    Dinv: Optional[torch.Tensor] = None  # Chebyshev (and Jacobi) only
+    lmax: Optional[float] = None         # Chebyshev only
     kind: str = "cached"
     stencil: Optional[torch.Tensor] = None
+    parent: Optional["LevelState"] = None  # transfer levels only
     # level 0 with kernels: the fp32 apply and the float64 residual's apply
     # that the ``fine_kernel`` setting names (kernels.fine_kernels)
     fine_apply: Optional[Callable] = None
@@ -356,6 +400,9 @@ def _apply_k_level(lv: LevelState, u: torch.Tensor) -> torch.Tensor:
         if lv.fine_apply is not None:
             return lv.fine_apply(u, lv.young, lv.K0, lv.grid)
         return ops.apply_k(u, lv.young, lv.K0, lv.grid)
+    if lv.kind == "transfer":
+        ndim = lv.grid.ndim
+        return restrict(_apply_k_level(lv.parent, prolongate(u, ndim)), ndim)
     if lv.stencil is not None:
         return kernels.apply_k_cached_f32(u, lv.stencil, lv.grid)
     return ops.apply_k_cached(u, lv.Ke, lv.grid)
@@ -370,7 +417,8 @@ def build_level_states(
     smoother: str = "chebyshev", use_kernels: bool = False,
     fine_kernel: str = "flat32",
 ) -> List[LevelState]:
-    """The hierarchy's operators for one modulus field.
+    """The hierarchy's operators for one modulus field (``Dinv`` and
+    ``lmax`` only for the Chebyshev smoother).
 
     ``use_kernels`` routes the fine level (through the fp32 kernel that
     ``fine_kernel`` names) and every non-coarsest cached level through the
@@ -378,8 +426,8 @@ def build_level_states(
     On CUDA tensors any other hierarchy raises rather than run the plain
     ops on the card; on CPU tensors the plain ops serve it (the wrappers
     run their plain twins there anyway)."""
-    if smoother != "chebyshev":
-        raise NotImplementedError(f"smoother={smoother!r}: {_TODO_GS}")
+    if smoother not in SMOOTHERS:
+        raise ValueError(f"smoother={smoother!r}: one of {SMOOTHERS}")
     apply32, apply64 = kernels.fine_kernels(fine_kernel)
     degree = cfg.levels[0].grid.degree
     if use_kernels and young.device.type == "cuda":
@@ -396,13 +444,10 @@ def build_level_states(
     prev_ke = None
     for l, lev in enumerate(cfg.levels):
         kind = cfg.level_kind(l)
-        if kind == "transfer":
-            raise NotImplementedError(
-                f"level {l} Ke exceeds ke_cache_limit_bytes: {_TODO_TRANSFER}")
         Ke = stencil = None
         if l == 0:
             M = ops.node_diag_blocks(young, prob.K0, lev.grid)
-        else:
+        elif kind == "cached":
             if prev_ke is not None and l >= 2:
                 # recursive Galerkin from the finer cached level
                 Ke = coarsen_ke(prev_ke, lev.grid.ndim)
@@ -414,23 +459,30 @@ def build_level_states(
                 # prev_ke keeps the stack for the next level's coarsen_ke
                 stencil = kernels.cached_stencil(Ke.contiguous(), lev.grid)
                 Ke = None
+        else:  # transfer
+            M = ops.node_diag_blocks_from_elem_diag(
+                build_level_ke_diag(cfg, young, l), lev.grid)
+            prev_ke = None  # the recursion needs the immediately finer stack
         states.append(
             LevelState(
                 grid=lev.grid,
                 dirichlet_mask=lev.dirichlet_mask,
+                colors=lev.colors,
                 young=young if l == 0 else None,
                 Ke=Ke,
                 Minv_rows=M,
                 K0=prob.K0.to(young.dtype) if l == 0 else None,
                 kind=kind,
                 stencil=stencil,
+                parent=states[-1] if kind == "transfer" else None,
                 fine_apply=apply32 if use_kernels and l == 0 else None,
                 fine_apply64=apply64 if use_kernels and l == 0 else None,
             )
         )
-    for l, lv in enumerate(states):
-        lv.Dinv = ops.invert_blocks(lv.Minv_rows)
-        lv.lmax = cfg.lmax_bounds[l]
+    if smoother == "chebyshev":
+        for l, lv in enumerate(states):
+            lv.Dinv = ops.invert_blocks(lv.Minv_rows)
+            lv.lmax = cfg.lmax_bounds[l]
     return states
 
 
@@ -487,6 +539,147 @@ def chebyshev_smooth(lv: LevelState, x, b, degree: int,
 
 
 # ---------------------------------------------------------------------------
+# Multicolor Gauss-Seidel
+# ---------------------------------------------------------------------------
+
+def _gs_trisolve_color(lv: LevelState, r: torch.Tensor, color,
+                       forward: bool) -> torch.Tensor:
+    """The update of one colour, on its sub-lattice
+    (:func:`color_slices`): per node the in-node triangular solve with the
+    N x N diagonal block M of K, forward (L + D) or backward (D + U),
+    Dirichlet-fixed components left at 0 (the JAX package's
+    ``_gs_trisolve_color``, computed on the colour's nodes only)."""
+    sl = color_slices(lv.grid, color)
+    M = lv.Minv_rows[sl]
+    rc = r[sl]
+    fixed = lv.dirichlet_mask[sl]
+    N = lv.grid.ndim
+    ud = [None] * N
+    for i in (range(N) if forward else range(N - 1, -1, -1)):
+        acc = rc[..., i]
+        for j in range(N):
+            if ud[j] is not None:
+                acc = acc - M[..., i, j] * ud[j]
+        ud[i] = (acc / M[..., i, i]).masked_fill(fixed[..., i], 0.0)
+    return torch.stack(ud, -1)
+
+
+def _sub_count(n: int, start: int) -> int:
+    """Nodes (or elements) start, start + 2, ... below n."""
+    return len(range(start, n, 2))
+
+
+def apply_k_parity(lv: LevelState, du_p: torch.Tensor, parity) -> torch.Tensor:
+    """K du for a degree-1 ``du`` supported on ONE parity class, given as
+    its values ``du_p`` on that class's sub-lattice (:func:`color_slices`);
+    returns the full node field.
+
+    Fine level and cached levels holding a Ke stack (the JAX package's
+    form): every element has exactly one local node of the class, so per
+    element parity q the contraction is the N columns of that node (of
+    young * K0 or of the element's Ke) against one gathered node value.
+    Elements of one parity share no node, so their forces tile the node
+    box they cover and land in one add per q. Cached levels holding only
+    their node stencil read it directly: output parity q takes the
+    offsets o with q + o = parity (mod 2), 3^N slot reads in all."""
+    if lv.stencil is not None:
+        return _apply_k_parity_stencil(lv, du_p, parity)
+    grid = lv.grid
+    N = grid.ndim
+    npe = grid.nodes_per_elem
+    dims = grid.dims
+    out = du_p.new_zeros(grid.nodes_per_dim + (N,))
+    if lv.kind == "fine":
+        K0r = lv.K0.to(du_p.dtype).reshape(npe, N, npe, N)
+    for q in itertools.product((0, 1), repeat=N):
+        nq = tuple(_sub_count(dims[d], q[d]) for d in range(N))
+        if 0 in nq:
+            continue
+        # the class's node in these elements: local offset o, local index
+        # a_star (C order), at sub-lattice index k + s_in of element q + 2k
+        o = [(parity[d] - q[d]) % 2 for d in range(N)]
+        a_star = sum(o[d] << (N - 1 - d) for d in range(N))
+        s_in = [(q[d] + o[d] - parity[d]) // 2 for d in range(N)]
+        dc = du_p[tuple(slice(s_in[d], s_in[d] + nq[d]) for d in range(N))]
+        esl = tuple(slice(qd, None, 2) for qd in q)
+        if lv.kind == "fine":
+            block = K0r[:, :, a_star, :].reshape(npe * N, N)
+            fe = (dc.reshape(-1, N) @ block.t()).reshape(nq + (npe, N))
+            fe = lv.young[esl][..., None, None] * fe
+        else:
+            Keq = lv.Ke[esl].reshape(nq + (npe, N, npe, N))[..., a_star, :]
+            fe = (Keq.to(du_p.dtype) @ dc[..., None, :, None]).squeeze(-1)
+        # local node a of element q + 2k is node q + 2k + offset(a): view the
+        # node box [q, q + 2 nq) as (nq_0, 2, nq_1, 2, ...) and add once
+        box = out[tuple(slice(q[d], q[d] + 2 * nq[d]) for d in range(N))]
+        for d in range(N):
+            box = box.unflatten(2 * d, (nq[d], 2))
+        fe = fe.reshape(nq + (2,) * N + (N,))
+        box += fe.permute([x for d in range(N) for x in (d, N + d)] + [2 * N])
+    return out
+
+
+def _apply_k_parity_stencil(lv: LevelState, du_p: torch.Tensor,
+                            parity) -> torch.Tensor:
+    S = lv.stencil
+    grid = lv.grid
+    N = grid.ndim
+    nodes = grid.nodes_per_dim
+    slots = kernels.stencil_offsets(N)
+    out = du_p.new_zeros(nodes + (N,))
+    # one zero node on every side: slots whose neighbour is off the grid
+    # read zeros
+    dpad = torch.nn.functional.pad(du_p, (0, 0) + (1, 1) * N)
+    for q in itertools.product((0, 1), repeat=N):
+        nq = tuple(_sub_count(nodes[d], q[d]) for d in range(N))
+        if 0 in nq:
+            continue
+        offs = list(itertools.product(*[(0,) if q[d] == parity[d] else (-1, 1)
+                                        for d in range(N)]))
+        sub = tuple(slice(qd, None, 2) for qd in q)
+        Sq = torch.stack([S[(slots.index(o), slice(None), slice(None)) + sub]
+                          for o in offs])                 # (k, N, N, nq...)
+        # node q + 2m + o is index m + (q + o - parity) // 2 of the class
+        win = torch.stack([
+            dpad[tuple(slice(1 + (q[d] + o[d] - parity[d]) // 2,
+                             1 + (q[d] + o[d] - parity[d]) // 2 + nq[d])
+                       for d in range(N))]
+            for o in offs])                               # (k, nq..., N)
+        f = (Sq * win.movedim(-1, 1).unsqueeze(1)).sum((0, 2))
+        out[sub] = f.movedim(0, -1)
+    return out
+
+
+def gs_sweep(lv: LevelState, u: torch.Tensor, b: torch.Tensor,
+             forward: bool = True) -> torch.Tensor:
+    """One multicolor Gauss-Seidel sweep over the level's colour classes
+    (reverse order when not ``forward``).
+
+    The residual r = b - K u is computed once, with the level's full
+    apply, then carried across colours: r <- r - K du with du on the
+    just-updated class, from :func:`apply_k_parity`. Transfer levels and
+    grids of another degree have no parity apply and take the full apply
+    per colour, as in the JAX package."""
+    colors = lv.colors if forward else lv.colors[::-1]
+    parity_ok = lv.kind != "transfer" and lv.grid.degree == 1
+    r = b - _apply_k_level(lv, u)
+    u = u.clone()
+    for k, c in enumerate(colors):
+        sl = color_slices(lv.grid, c)
+        du = _gs_trisolve_color(lv, r, c, forward)
+        u[sl] += du
+        if k == len(colors) - 1:
+            break
+        if parity_ok:
+            r -= apply_k_parity(lv, du, c)
+        else:
+            full = torch.zeros_like(u)
+            full[sl] = du
+            r -= _apply_k_level(lv, full)
+    return u
+
+
+# ---------------------------------------------------------------------------
 # Coarsest solve
 # ---------------------------------------------------------------------------
 
@@ -505,11 +698,8 @@ def _coarsest_dense_k(levels: List[LevelState]) -> torch.Tensor:
     """The pinned, Tikhonov-shifted dense K of the coarsest level,
     modified in place (one n_dofs^2 buffer)."""
     lv = levels[-1]
-    K = solvers.assemble_dense_k_traced(lv.Ke, lv.grid)
-    idx = torch.nonzero(lv.dirichlet_mask.reshape(-1)).reshape(-1)
-    K[idx, :] = 0.0
-    K[:, idx] = 0.0
-    K[idx, idx] = 1.0
+    K = ops.pin_dirichlet(solvers.assemble_dense_k_traced(lv.Ke, lv.grid),
+                          lv.dirichlet_mask)
     # relative diagonal shift, decisively above the fp32 Galerkin
     # rounding floor (see ndr_tpu.fem.multigrid._coarsest_dense_k): the
     # coarse solve only preconditions, and an indefinite fp32 coarse K
@@ -550,49 +740,63 @@ def ns_inverse(K: torch.Tensor, iters: int = 30) -> torch.Tensor:
 # Cycles
 # ---------------------------------------------------------------------------
 
-def _smooth(lv: LevelState, x, b, nsmooth: int, cheb_degree: int,
-            x_is_zero: bool = False, need_r: bool = False):
-    return chebyshev_smooth(lv, x, b, degree=cheb_degree * nsmooth,
-                            x_is_zero=x_is_zero, need_r=need_r)
+def _smooth(lv: LevelState, x, b, nsmooth: int, forward: bool, smoother: str,
+            cheb_degree: int, x_is_zero: bool = False, need_r: bool = False):
+    """Returns ``(x, r)``; ``r`` is ``b - K x`` when the smoother yields
+    it for free (Chebyshev with ``need_r``), else ``None``."""
+    if smoother == "chebyshev":
+        # degree plays the role of "sweeps"; direction is irrelevant
+        return chebyshev_smooth(lv, x, b, degree=cheb_degree * nsmooth,
+                                x_is_zero=x_is_zero, need_r=need_r)
+    for _ in range(nsmooth):
+        x = gs_sweep(lv, x, b, forward=forward)
+    return x, None
 
 
-def vcycle(levels, chol, l, x, b, nsmooth: int, cheb_degree: int = 2,
-           x_zero: bool = False):
+def vcycle(levels, chol, l, x, b, nsmooth: int, symmetric_gs: bool = True,
+           smoother: str = "gs", cheb_degree: int = 2, x_zero: bool = False):
+    """One V-cycle from level ``l``: the pre-smoother sweeps forward, the
+    post-smoother backward when ``symmetric_gs`` (GS only)."""
     if l == len(levels) - 1:
         return _coarse_solve(levels[l], chol, b)
     lv = levels[l]
     x = x if x_zero else _zero_dirichlet(lv, x)
-    x, r = _smooth(lv, x, b, nsmooth, cheb_degree, x_is_zero=x_zero,
-                   need_r=True)
+    x, r = _smooth(lv, x, b, nsmooth, True, smoother, cheb_degree,
+                   x_is_zero=x_zero, need_r=True)
+    if r is None:  # GS: explicit residual
+        r = _zero_dirichlet(lv, b - _apply_k_level(lv, x))
     b_c = restrict(r, lv.grid.ndim)
     x_c = vcycle(levels, chol, l + 1, torch.zeros_like(b_c), b_c, nsmooth,
-                 cheb_degree, x_zero=True)
+                 symmetric_gs, smoother, cheb_degree, x_zero=True)
     x = x + prolongate(x_c, lv.grid.ndim)
-    x, _ = _smooth(lv, x, b, nsmooth, cheb_degree)
+    x, _ = _smooth(lv, x, b, nsmooth, not symmetric_gs, smoother, cheb_degree)
     return x
 
 
-def full_multigrid(levels, chol, l, b, nsmooth: int, cheb_degree: int = 2):
+def full_multigrid(levels, chol, l, b, nsmooth: int, symmetric_gs: bool = True,
+                   smoother: str = "gs", cheb_degree: int = 2):
     if l == len(levels) - 1:
         return _coarse_solve(levels[l], chol, b)
     b_c = restrict(b, levels[l].grid.ndim)
-    x_c = full_multigrid(levels, chol, l + 1, b_c, nsmooth, cheb_degree)
+    x_c = full_multigrid(levels, chol, l + 1, b_c, nsmooth, symmetric_gs,
+                         smoother, cheb_degree)
     x = prolongate(x_c, levels[l].grid.ndim)
-    return vcycle(levels, chol, l, x, b, nsmooth, cheb_degree)
+    return vcycle(levels, chol, l, x, b, nsmooth, symmetric_gs, smoother,
+                  cheb_degree)
 
 
 def mg_preconditioner(levels, chol, r, mg_iterations: int, nsmooth: int,
-                      fmg: bool, cheb_degree: int = 2):
-    """s ~= K^-1 r."""
+                      fmg: bool, smoother: str = "gs", cheb_degree: int = 2):
+    """s ~= K^-1 r (symmetric GS cycles, as in the JAX package)."""
     if fmg:
-        s = full_multigrid(levels, chol, 0, r, nsmooth, cheb_degree)
+        s = full_multigrid(levels, chol, 0, r, nsmooth, True, smoother, cheb_degree)
         for _ in range(mg_iterations - 1):
-            s = vcycle(levels, chol, 0, s, r, nsmooth, cheb_degree)
+            s = vcycle(levels, chol, 0, s, r, nsmooth, True, smoother, cheb_degree)
     else:
         s = torch.zeros_like(r)
         for k in range(mg_iterations):
-            s = vcycle(levels, chol, 0, s, r, nsmooth, cheb_degree,
-                       x_zero=(k == 0))
+            s = vcycle(levels, chol, 0, s, r, nsmooth, True, smoother,
+                       cheb_degree, x_zero=(k == 0))
     return s
 
 
@@ -603,8 +807,10 @@ def mg_preconditioner(levels, chol, r, mg_iterations: int, nsmooth: int,
 @dataclasses.dataclass
 class MGSolverSettings:
     """Solver knobs, with ``ndr_tpu.fem.multigrid.MGSolverSettings``'s
-    defaults. ``smoother="gs"`` is the JAX default but is not ported yet
-    (it raises); the classic driver passes "chebyshev"."""
+    defaults (``smoother``: "gs", the multicolor Gauss-Seidel sweep, or
+    "chebyshev"; ``ground_truth_topopt`` passes "chebyshev"). The JAX package's
+    ``symmetric_gs`` field is read by nothing there (its preconditioner
+    always runs symmetric cycles), so it has no counterpart here."""
 
     num_levels: int = 2
     cg_iter: int = 100
@@ -664,6 +870,9 @@ def _use_refined(prob: FEMProblem, settings: MGSolverSettings) -> bool:
 def _make_preconditioner(cfg, settings, levels):
     lv0 = levels[0]
     if settings.precond == "jacobi":
+        if lv0.Dinv is None:  # a GS hierarchy builds no Dinv
+            lv0.Dinv = ops.invert_blocks(lv0.Minv_rows)
+
         def precond(r):
             return _dinv_apply(lv0, r)
     else:
@@ -673,7 +882,7 @@ def _make_preconditioner(cfg, settings, levels):
             s = mg_preconditioner(
                 levels, chol, r, settings.mg_iterations,
                 settings.mg_smoothing_iterations, settings.full_multigrid,
-                settings.cheb_degree,
+                settings.smoother, settings.cheb_degree,
             )
             return _zero_dirichlet(lv0, s)
     return precond

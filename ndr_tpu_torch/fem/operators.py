@@ -136,6 +136,17 @@ def node_diag_blocks_cached(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
     return out
 
 
+def node_diag_blocks_from_elem_diag(ke_diag: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """Per-node diagonal blocks from per-element *diagonal-only* blocks
+    (dims..., npe, N, N): the levels whose full Ke is not materialized."""
+    N = grid.ndim
+    out = torch.zeros(grid.nodes_per_dim + (N, N), dtype=ke_diag.dtype,
+                      device=ke_diag.device)
+    for j, o in enumerate(local_node_offsets(grid)):
+        out[_elem_slice(grid, o)] += ke_diag[..., j, :, :]
+    return out
+
+
 def invert_blocks(M: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of batched 2x2 / 3x3 SPD blocks (..., N, N)."""
     n = M.shape[-1]
@@ -204,3 +215,37 @@ def element_node_flat_indices(grid: Grid) -> np.ndarray:
     glob = first[:, None, :] + offs[None, :, :]        # (ne, npe, N)
     strides = np.cumprod([1] + list(nodes_pd[::-1][:-1]))[::-1]
     return glob @ strides
+
+
+# ---------------------------------------------------------------------------
+# Dense assembly (NumPy; test oracles and tiny direct solves only)
+# ---------------------------------------------------------------------------
+
+def assemble_dense_k(young: np.ndarray, K0: np.ndarray, grid: Grid) -> np.ndarray:
+    """The full dense stiffness matrix (small grids only), DOFs
+    node-major, component-minor."""
+    N = grid.ndim
+    n_dofs = grid.num_nodes * N
+    K = np.zeros((n_dofs, n_dofs))
+    enodes = element_node_flat_indices(grid)
+    E = np.asarray(young).ravel()
+    K0 = np.asarray(K0)
+    for e in range(grid.num_elements):
+        dofs = np.stack([N * enodes[e] + c for c in range(N)], axis=1).ravel()
+        K[np.ix_(dofs, dofs)] += E[e] * K0
+    return K
+
+
+def pin_dirichlet(K: torch.Tensor, dirichlet_mask: torch.Tensor) -> torch.Tensor:
+    """Zero the fixed rows and columns of a dense K in place and put 1 on
+    their diagonal (zero-value Dirichlet conditions); returns K."""
+    idx = torch.nonzero(dirichlet_mask.reshape(-1)).reshape(-1)
+    K[idx, :] = 0.0
+    K[:, idx] = 0.0
+    K[idx, idx] = 1.0
+    return K
+
+
+def pin_dirichlet_dense(K: np.ndarray, mask_flat: np.ndarray) -> np.ndarray:
+    """:func:`pin_dirichlet` on a copy of a NumPy K."""
+    return pin_dirichlet(torch.tensor(K), torch.as_tensor(np.asarray(mask_flat))).numpy()

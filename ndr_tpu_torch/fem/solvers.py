@@ -1,5 +1,6 @@
-"""Linear solvers: preconditioned CG and dense assembly for the coarsest
-multigrid level (counterpart of ``ndr_tpu/fem/solvers.py``).
+"""Linear solvers: preconditioned CG, and dense assembly and Cholesky for
+the coarsest multigrid level and as test oracles (counterpart of
+``ndr_tpu/fem/solvers.py``).
 
 The MGPCG driver lives in :mod:`ndr_tpu_torch.fem.multigrid`.
 """
@@ -32,6 +33,40 @@ def assemble_dense_k_traced(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
     K = torch.zeros(n_dofs * n_dofs, dtype=Ke.dtype, device=Ke.device)
     K.index_add_(0, torch.as_tensor(flat, device=Ke.device), Ke.reshape(-1))
     return K.reshape(n_dofs, n_dofs)
+
+
+def dense_pinned_matrix(young, K0, dirichlet_mask, grid: Grid) -> np.ndarray:
+    """Dense stiffness matrix with the Dirichlet DOFs pinned (NumPy)."""
+    K = ops.assemble_dense_k(np.asarray(young), np.asarray(K0), grid)
+    return ops.pin_dirichlet_dense(K, np.asarray(dirichlet_mask).reshape(-1))
+
+
+def dense_solve(young: torch.Tensor, K0: torch.Tensor,
+                dirichlet_mask: torch.Tensor, f: torch.Tensor,
+                grid: Grid) -> torch.Tensor:
+    """Direct dense Cholesky solve of K(young) u = f with zero Dirichlet
+    values (small grids only: the oracle of the iterative solves)."""
+    Ke = young[..., None, None] * K0.to(young.dtype)
+    dcs = DenseCoarseSolver(grid)
+    return dcs.solve(dcs.factor(Ke, dirichlet_mask), f.to(young.dtype), dirichlet_mask)
+
+
+class DenseCoarseSolver:
+    """Exact Cholesky solve of a level's pinned dense K from its
+    per-element stack."""
+
+    def __init__(self, grid: Grid):
+        self.grid = grid
+
+    def factor(self, Ke: torch.Tensor, dirichlet_mask: torch.Tensor) -> torch.Tensor:
+        """The lower Cholesky factor of the pinned dense K."""
+        K = ops.pin_dirichlet(assemble_dense_k_traced(Ke, self.grid), dirichlet_mask)
+        return torch.linalg.cholesky(K)
+
+    def solve(self, chol: torch.Tensor, b: torch.Tensor,
+              dirichlet_mask: torch.Tensor) -> torch.Tensor:
+        rhs = b.reshape(-1).masked_fill(dirichlet_mask.reshape(-1), 0.0)
+        return torch.cholesky_solve(rhs[:, None], chol)[:, 0].reshape(b.shape)
 
 
 def conjugate_gradient(

@@ -21,7 +21,7 @@ computes it). The Fourier encode is always full precision. The global
 precision flags are never changed.
 
 The multi-head / continual-learning parts of the JAX module are not
-ported yet (ROADMAP.md Queue 1 item 12).
+ported yet (ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations

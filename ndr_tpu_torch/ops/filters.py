@@ -1,6 +1,6 @@
 """Density filters, differentiable under autograd (counterpart of
 ``ndr_tpu/ops/filters.py``; the Langelaar and callback filters are not
-ported yet, ROADMAP.md Queue 1 item 11).
+ported yet, ROADMAP.md Queue 1 item 4).
 
 Two families:
 

@@ -71,13 +71,13 @@ def ground_truth_topopt(
     equilibrium, Chebyshev smoother of degree 1 per smoothing sweep.
     """
     if optimizer != "OC":
-        _not_ported(f"optimizer={optimizer!r}", "Queue 1 item 11 (ops/lbfgs.py)")
+        _not_ported(f"optimizer={optimizer!r}", "Queue 1 item 4 (ops/lbfgs.py)")
     if (shards if isinstance(shards, int) else max(shards)) > 1:
-        _not_ported("shards", "Queue 1 item 13 (parallel/mesh.py)")
+        _not_ported("shards", "Queue 1 item 6 (parallel/mesh.py)")
     if precond_lag > 1:
-        _not_ported("precond_lag > 1", "Queue 1 item 11 (lagged preconditioner)")
+        _not_ported("precond_lag > 1", "Queue 1 item 3 (lagged preconditioner)")
     if scan_chunk > 1:
-        _not_ported("scan_chunk > 1", "Queue 1 item 11 (device-side chunked loop)")
+        _not_ported("scan_chunk > 1", "Queue 1 item 3 (device-side chunked loop)")
     device = torch.device(device)
     dtype = dtype or torch.float32
     # mgl=0 means the plain-CG exact-solve path (reference's direct solve)

@@ -1,6 +1,6 @@
 """Multiresolution curriculum schedules (counterpart of the schedule part
 of ``ndr_tpu/training/curriculum.py``; the continual-learning helpers are
-not ported yet, ROADMAP.md Queue 1 item 12).
+not ported yet, ROADMAP.md Queue 1 item 5).
 
 The random orders and sizes draw from an explicit NumPy generator.
 """

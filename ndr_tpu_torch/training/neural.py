@@ -10,8 +10,7 @@ backward pass and one ``torch.optim`` step.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): the device-side chunked loop (``scan_chunk > 1``) and the lagged
-preconditioner (``precond_lag > 1``), Queue 1 item 11; the solver raises
-for ``smoother="gs"``.
+preconditioner (``precond_lag > 1``), Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -32,8 +31,8 @@ from ndr_tpu_torch.models import mlp
 from ndr_tpu_torch.ops import filters as flt
 from ndr_tpu_torch.ops import volume as vol
 
-_TODO_SCAN = "Queue 1 item 11 (device-side chunked loop)"
-_TODO_LAG = "Queue 1 item 11 (lagged preconditioner)"
+_TODO_SCAN = "Queue 1 item 3 (device-side chunked loop)"
+_TODO_LAG = "Queue 1 item 3 (lagged preconditioner)"
 
 
 def _not_ported(what: str, item: str):

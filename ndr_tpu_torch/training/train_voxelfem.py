@@ -39,8 +39,9 @@ def main(argv=None):
                    help="torch device (default cuda; asking for cuda without "
                         "a card raises, it never falls back to the CPU)")
     p.add_argument("--out", help="output directory", default="logs/gt")
-    p.add_argument("--smoother", default="chebyshev",
-                   help="multigrid smoother (chebyshev; gs is not ported yet)")
+    p.add_argument("--smoother", default="chebyshev", choices=["chebyshev", "gs"],
+                   help="multigrid smoother: chebyshev (degree 1 per sweep) or "
+                        "gs (multicolor Gauss-Seidel, the reference's)")
     p.add_argument("--kernels", default="auto", choices=["auto", "on", "off"],
                    help="hand-written CUDA stiffness kernels (auto: on for "
                         "CUDA tensors; off: plain torch ops)")
@@ -73,7 +74,7 @@ def main(argv=None):
     if args.optim != "OC":
         raise NotImplementedError(
             f"optimizer {args.optim!r} is not ported yet (ROADMAP.md Queue 1 "
-            "item 11, ops/lbfgs.py)")
+            "item 4, ops/lbfgs.py)")
 
     timers.reset()
     os.makedirs(args.out, exist_ok=True)

@@ -78,7 +78,7 @@ def main(argv=None) -> XDGResult:
                         "(element-centric fp32 apply), flat (element-centric "
                         "float64 residual)")
     p.add_argument("--smoother", default="chebyshev", choices=["chebyshev", "gs"],
-                   help="MG smoother (gs is not ported yet)")
+                   help="MG smoother: chebyshev or gs (multicolor Gauss-Seidel)")
     p.add_argument("--cheb-degree", default=2, type=int,
                    help="Chebyshev polynomial degree per smoothing iteration")
     p.add_argument("--mlp-precision", default=None,

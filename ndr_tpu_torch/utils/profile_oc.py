@@ -3,7 +3,7 @@
 
     python -m ndr_tpu_torch.utils.profile_oc \\
         [--prob problems/3d/cantilever_flexion.json] [--grid "[192,96,96]"] \\
-        [--mgl 3] [--steps 3] [--kernels on,off]
+        [--mgl 3] [--steps 3] [--kernels on,off] [--smoother chebyshev|gs]
 
 For each kernels setting it runs ``2 + steps + 1`` OC steps on CUDA:
 
@@ -18,6 +18,13 @@ For each kernels setting it runs ``2 + steps + 1`` OC steps on CUDA:
    memcpys and memsets, which run on one stream and do not overlap), the
    idle share 1 - busy / wall, the number of device ops, and the device
    ops that took the most time.
+
+With ``--smoother gs`` the GS sweeps are also tallied per level: in the
+synced steps each sweep is timed between two syncs (sweeps per step, ms
+per sweep, their share of "solve total"), and after the run one sweep of
+each level, on the operands of its last call, is traced on its own: its
+device ops (launches per sweep), its device busy time and the idle share
+1 - busy / (synced ms per sweep), and the port's kernel launches in it.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 import argparse
 import ast
 import contextlib
+import math
 import statistics
 import time
 from collections import defaultdict
@@ -32,6 +40,7 @@ from collections import defaultdict
 import torch
 
 from ndr_tpu_torch.io.problem import load_problem
+from ndr_tpu_torch.fem import kernels
 from ndr_tpu_torch.fem import multigrid as mg
 from ndr_tpu_torch.fem import topopt
 from ndr_tpu_torch.training.classic import ground_truth_topopt
@@ -88,6 +97,59 @@ def synced_sections(on: list, seconds: dict, calls: dict, sections=SECTIONS):
             setattr(owner, attr, fn)
 
 
+@contextlib.contextmanager
+def gs_sweep_tally(on: list, seconds: dict, calls: dict, last: dict):
+    """Wrap ``multigrid.gs_sweep``: while ``on[0]`` is true each sweep is
+    timed between two syncs into ``seconds`` / ``calls`` keyed by its
+    level's node dims; ``last`` keeps each level's latest operands."""
+    fn = mg.gs_sweep
+
+    def timed(lv, u, b, forward=True):
+        key = lv.grid.nodes_per_dim
+        last[key] = (lv, u, b, forward)
+        if not on[0]:
+            return fn(lv, u, b, forward)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(lv, u, b, forward)
+        torch.cuda.synchronize()
+        seconds[key] += time.perf_counter() - t0
+        calls[key] += 1
+        return out
+
+    mg.gs_sweep = timed
+    try:
+        yield
+    finally:
+        mg.gs_sweep = fn
+
+
+def report_gs_sweeps(tag: str, seconds, calls, last, steps: int, solve_s: float):
+    """Per level: sweeps per step, synced ms per sweep, share of the
+    solve (``solve_s``: the synced solves' seconds over the same ``steps``)
+    and one traced sweep's device ops, busy time and idle share."""
+    for key in sorted(last, key=lambda k: -math.prod(k)):
+        lv, u, b, forward = last[key]
+        n = calls[key]
+        ms = 1e3 * seconds[key] / max(n, 1)
+        mg.gs_sweep(lv, u, b, forward)  # warm
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            mg.gs_sweep(lv, u, b, forward)
+            torch.cuda.synchronize()
+        busy, n_ops, _, _ = device_summary(prof)
+        used = {k: v for k, v in kernels.launches.items() if v}
+        print(f"{tag} GS sweep level {lv.grid.dims} ({lv.kind}"
+              f"{', stencil' if lv.stencil is not None else ''}): "
+              f"{n / steps:.1f} sweeps/step, {ms:.3f} ms/sweep (synced), "
+              f"{seconds[key] / solve_s:.3f} of the solve; traced sweep: "
+              f"{n_ops} device ops, busy {1e3 * busy:.3f} ms, idle share "
+              f"{1 - 1e3 * busy / ms:.3f}; port kernels {used}")
+
+
 def report(tag: str, unit: str, sections, seconds, calls, steps: int, synced,
            wall, prof):
     """Print the synced steps' median time (in ``unit``), the sections'
@@ -131,9 +193,11 @@ def device_summary(prof):
     return busy, n, ops[:TOP_OPS], port
 
 
-def profile(cfg, dims, mgl: int, steps: int, kernels: str, device):
-    tag = f"[{kernels}]"
+def profile(cfg, dims, mgl: int, steps: int, kernels_mode: str, device,
+            smoother: str = "chebyshev"):
+    tag = f"[{kernels_mode}]"
     on, seconds, calls = [False], defaultdict(float), defaultdict(int)
+    gs_s, gs_n, gs_last = defaultdict(float), defaultdict(int), {}
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA])
@@ -150,16 +214,18 @@ def profile(cfg, dims, mgl: int, steps: int, kernels: str, device):
             prof.stop()
 
     torch.cuda.reset_peak_memory_stats()
-    with synced_sections(on, seconds, calls):
+    with synced_sections(on, seconds, calls), gs_sweep_tally(on, gs_s, gs_n, gs_last):
         result = ground_truth_topopt(
             cfg, dims=dims, max_iter=traced + 1, multigrid_levels=mgl,
-            use_kernels={"on": True, "off": False}[kernels], device=device,
-            callback=callback, log=lambda s: None)
+            smoother=smoother, use_kernels={"on": True, "off": False}[kernels_mode],
+            device=device, callback=callback, log=lambda s: None)
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     report(tag, "s/OC-iter", SECTIONS, seconds, calls, steps, result.step_seconds[WARMUP:traced],
            result.step_seconds[traced], prof)
     print(f"{tag} peak memory {peak:.2f} GiB")
+    if gs_last:
+        report_gs_sweeps(tag, gs_s, gs_n, gs_last, steps, seconds["solve total"])
 
 
 def main(argv=None):
@@ -169,15 +235,16 @@ def main(argv=None):
     p.add_argument("--mgl", default=3, type=int)
     p.add_argument("--steps", default=3, type=int)
     p.add_argument("--kernels", default="on,off")
+    p.add_argument("--smoother", default="chebyshev", choices=mg.SMOOTHERS)
     args = p.parse_args(argv)
 
     setup()
     device = resolve_device("cuda")
     cfg = load_problem(args.prob)
     dims = tuple(ast.literal_eval(args.grid))
-    print(f"profile_oc: {args.prob} {dims} mgl={args.mgl}")
-    for kernels in args.kernels.split(","):
-        profile(cfg, dims, args.mgl, args.steps, kernels, device)
+    print(f"profile_oc: {args.prob} {dims} mgl={args.mgl} smoother={args.smoother}")
+    for kernels_mode in args.kernels.split(","):
+        profile(cfg, dims, args.mgl, args.steps, kernels_mode, device, args.smoother)
 
 
 if __name__ == "__main__":

@@ -155,6 +155,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_voxelfem.main(base)          # --device defaults to cuda
     for extra in (["--shards", "2"], ["--precond-lag", "2"], ["--scan", "4"],
-                  ["--optim", "LBFGS"], ["--smoother", "gs"]):
+                  ["--optim", "LBFGS"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             train_voxelfem.main(base + ["--device", "cpu"] + extra)
+    # the GS smoother is ported
+    result = train_voxelfem.main(base + ["--device", "cpu", "--mgl", "1",
+                                         "--smoother", "gs"])
+    assert np.isfinite(result.history).all()

@@ -228,6 +228,59 @@ def test_f64_blocks_uploaded_once_per_problem(device, monkeypatch, fine_kernel, 
     assert built.count(torch.float32) == 2
 
 
+@pytest.mark.parametrize("prob_path,dims,nl", [CASES[0] + (1,), CASES[3] + (2,),
+                                               CASES[7] + (1,)])
+def test_gs_sweep_with_kernels_matches_plain(device, prob_path, dims, nl):
+    """fp32 GS sweeps, forward and backward, on every level: kernels on
+    (the fine kernel, the cached levels' stencils and their parity apply)
+    against the plain ops on the same card."""
+    prob, grid = problem_from_config(load_problem(prob_path), dims=dims,
+                                     dtype=torch.float32, device=device)
+    cfg = mg.build_mg_config(prob, nl)
+    young = prob.young(torch.tensor(np.random.default_rng(8).uniform(0.05, 1.0, grid.dims),
+                                    dtype=torch.float32, device=device))
+    plain = mg.build_level_states(cfg, prob, young, smoother="gs")
+    kernels.reset_launches()
+    kern = mg.build_level_states(cfg, prob, young, smoother="gs", use_kernels=True)
+    rng = np.random.default_rng(9)
+    for l in range(nl + 1):
+        g = plain[l].grid
+        b = torch.tensor(rng.standard_normal(g.nodes_per_dim + (g.ndim,)),
+                         dtype=torch.float32, device=device)
+        u = torch.tensor(rng.standard_normal(b.shape), dtype=torch.float32, device=device)
+        for forward in (True, False):
+            ref = mg.gs_sweep(plain[l], u, b, forward)
+            assert _rel(mg.gs_sweep(kern[l], u, b, forward), ref) < 1e-5, (l, forward)
+    assert kernels.launches["apply_k_fine_f32"] == 2
+    if nl > 1:
+        assert kernels.launches["apply_k_cached_f32"] == 2
+        assert kernels.launches["cached_stencil"] >= 1
+
+
+def test_mgpcg_with_transfer_level_on_card(device):
+    """Level 1 forced to the transfer kind (R K_fine P through the fine
+    kernel): the GS and Chebyshev solves with kernels on reach the
+    plain solve's compliance."""
+    prob, grid = problem_from_config(load_problem(CASES[3][0]), dims=CASES[3][1],
+                                     dtype=torch.float32, device=device)
+    rho = torch.tensor(np.random.default_rng(10).uniform(0.05, 1.0, grid.dims),
+                       dtype=torch.float32, device=device)
+    for smoother in ("gs", "chebyshev"):
+        settings = mg.MGSolverSettings(num_levels=2, smoother=smoother, use_kernels=True,
+                                       ke_cache_limit_bytes=1)
+        solve = mg.make_mg_solver(prob, settings)
+        assert solve.cfg.level_kind(1) == "transfer"
+        kernels.reset_launches()
+        u, iters = solve(rho)
+        torch.cuda.synchronize()
+        assert kernels.launches["apply_k_fine_f32"] > 0 and iters < 100
+        u_ref, _ = mg.make_mg_solver(prob, dataclasses.replace(
+            settings, use_kernels=False, ke_cache_limit_bytes=1400 * 2**20))(rho)
+        f = prob.force.double().reshape(-1)
+        c, c_ref = float(f @ u.reshape(-1)), float(f @ u_ref.reshape(-1))
+        assert abs(c - c_ref) / abs(c_ref) < 1e-4, smoother
+
+
 def test_profile_oc_small(device, capsys):
     profile_oc.main(["--grid", "[16,8,8]", "--mgl", "2", "--steps", "1"])
     out = capsys.readouterr().out
@@ -235,6 +288,10 @@ def test_profile_oc_small(device, capsys):
         assert f"{tag} s/OC-iter with synced sections" in out
         assert f"{tag} traced step wall" in out
         assert f"{tag}   solve total" in out
+    profile_oc.main(["--grid", "[16,8,8]", "--mgl", "2", "--steps", "1",
+                     "--kernels", "on", "--smoother", "gs"])
+    out = capsys.readouterr().out
+    assert out.count("[on] GS sweep level") == 2   # the two smoothed levels
 
 
 def test_profile_neural_small(device, capsys):

@@ -172,8 +172,11 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_xdg.main(base)          # --device defaults to cuda
-    for extra in (["--scan", "4"], ["--precond-lag", "2"], ["--smoother", "gs"]):
+    for extra in (["--scan", "4"], ["--precond-lag", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             train_xdg.main(base + ["--device", "cpu"] + extra)
+    # the GS smoother is ported
+    result = train_xdg.main(base + ["--device", "cpu", "--mgl", "1", "--smoother", "gs"])
+    assert np.isfinite(result.final_compliance)
     with pytest.raises(SystemExit):
         train_xdg.main(base + ["--device", "cpu", "--fine-kernel", "elem"])

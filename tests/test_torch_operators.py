@@ -52,11 +52,13 @@ def _problems(prob_path, dims):
 
 
 def test_port_imports_without_jax():
-    """The port, its CLIs and chip_smoke's imports load neither JAX,
-    optax nor any module of the JAX package."""
+    """The port, its CLIs (the eval ones too) and chip_smoke's imports
+    load neither JAX, optax nor any module of the JAX package."""
     code = ("import sys, ndr_tpu_torch.training.train_xdg, "
             "ndr_tpu_torch.training.train_voxelfem, ndr_tpu_torch.fem.kernels, "
             "ndr_tpu_torch.utils.profile_oc, ndr_tpu_torch.utils.profile_neural, "
+            "ndr_tpu_torch.eval.evaluate, ndr_tpu_torch.eval.eval_voxelfem, "
+            "ndr_tpu_torch.eval.eval_fourfeat, ndr_tpu_torch.eval.fourfeat_utils, "
             "chip_smoke; "
             "chip_smoke.port_modules(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
