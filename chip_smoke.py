@@ -26,7 +26,23 @@ each with the launch counters set to 0 just before and read just after:
      trained network at 128x64x32 (mgl=3) and 256x128x64 (mgl=4), 2x and
      4x its training grid;
   6. ``eval_voxelfem`` on path 4's final density upsampled to the
-     cantilever's production grid 256x128x128 (mgl=5).
+     cantilever's production grid 256x128x128 (mgl=5);
+  7. the production classic configuration: cantilever 256x128x128, mgl=5,
+     Chebyshev, 32 OC steps from the design of 20 fresh ones (the JAX
+     package's lag measurement starts after 20 warm-up steps: from the
+     uniform start a lagged hierarchy stalls CG after the first large OC
+     moves, in both packages), (a) rebuilding every step, (b) with
+     ``--precond-lag 8`` and (c) with ``--precond-lag 8 --scan 32`` (the
+     chunked loop, its preconditioner replayed from a CUDA graph), (b) and
+     (c) held to (a);
+  8. classic GS 192x96x96 mgl=3 with ``--precond-lag 4 --scan 4`` from the
+     design of 20 fresh Chebyshev steps, held to the host-loop GS run from
+     the same design;
+  9. neural TO, the bench configuration of path 3 with ``--precond-lag 4
+     --scan 8``, held to path 3's run;
+ 10. the solver settings ``cached_ke_dtype="bfloat16"`` (the bf16 stencil
+     kernels) and ``lmax_power_iters=8`` through ``make_mg_solver`` at
+     192x96x96 mgl=3, each held to the fp32 bound-only solve.
 
 Any failed check exits non-zero. The last line of standard output is one
 JSON object naming the device; the line before it, the card's name and
@@ -89,6 +105,16 @@ EVAL_CG_CAP = 200
 FOURFEAT_EVALS = (((128, 64, 32), 3), ((256, 128, 64), 4))
 # the cantilever's production grid (tests/test_golden.py), level 1 cached
 VOXEL_EVAL = ((256, 128, 128), 5)
+# the JAX package's production classic configuration (bench.py, README.md):
+# 256x128x128 mgl=5, a lag-8 preconditioner, a 32-step chunk
+PROD_GRID, PROD_MGL, PROD_STEPS, PROD_LAG, PROD_SCAN = (256, 128, 128), 5, 32, 8, 32
+# fresh OC steps before a lagged run (scripts/profile_oc.py --warm 20)
+WARM_STEPS = 20
+TOL_STEP0 = 1e-6     # step 0 of (b), (c) against (a): the same first hierarchy
+TOL_LAG = 1e-4       # lagged against fresh histories (tests/test_training.py:176)
+TOL_GRAPH = 1e-5     # (c) against (b): the same steps, replayed
+TOL_NEURAL_LAG = 2e-3  # tests/test_training.py:56-60
+GS_LAG_STEPS = 4
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -112,6 +138,11 @@ CACHED = {  # wrapper -> (source, replaced TPU kernel or its operand layout)
                            "ndr_tpu/fem/pallas_kernels.py:1096"),
     "cached_stencil": ("ndr_tpu_torch/csrc/cached_stencil.cu",
                        "ndr_tpu/fem/pallas_kernels.py:1075"),
+    # the same TPU kernel on a bf16 Ke stream (cached_ke_dtype="bfloat16")
+    "apply_k_cached_bf16": ("ndr_tpu_torch/csrc/cached_stencil.cu",
+                            "ndr_tpu/fem/pallas_kernels.py:1096"),
+    "cached_stencil_bf16": ("ndr_tpu_torch/csrc/cached_stencil.cu",
+                            "ndr_tpu/fem/pallas_kernels.py:1075"),
 }
 SLEEP_CYCLES = 200_000_000   # ~0.1 s of device time: the host queues all timed reps in it
 
@@ -354,6 +385,18 @@ def phase_kernels(m):
             old = bound(4 * d * d * ne + 8 * N * nn, 2 * d * d * ne, torch.float32)
             print(f"    bound of the per-element Ke stack it replaces: {old[0]:.4f} ms "
                   f"by {old[1]} ({(4 * d * d * ne + 8 * N * nn) / 1e6:.1f} MB)")
+        # the bf16 storage: 2 B per stencil entry; the library SpMV takes the
+        # rounded entries widened to fp32
+        S16 = run("cached_stencil_bf16", kernels.cached_stencil_bf16,
+                  kernels.cached_stencil_bf16_plain, (ke,), g, 0, label,
+                  cost=(4 * d * d * ne + 2 * slots * nn, d * d * ne, torch.float32)
+                  if timed else None)
+        run("apply_k_cached_bf16", kernels.apply_k_cached_bf16,
+            kernels.apply_k_cached_bf16_plain, (ul, S16), g, TOL_F32, label,
+            cost=(2 * slots * nn + 8 * N * nn, 2 * slots * nn, torch.float32)
+            if timed else None,
+            library=(lambda: (stencil_csr(kernels, g, S16.float()), ul.reshape(-1)))
+            if timed else None)
 
     rng = np.random.default_rng(0)
     for prob_path, dims in TEST_SHAPES + [(PROB, GRID)]:
@@ -470,12 +513,13 @@ def run_path(m, label: str, fn, expect: tuple):
     return result, counts, peak
 
 
-def classic(m, kernels_mode: str, smoother: str = "chebyshev", iters: int = ITERS):
-    jid = f"classic_{kernels_mode}" if smoother == "chebyshev" else \
-        f"classic_{smoother}_{kernels_mode}"
-    argv = ["--prob", PROB, "--grid", json.dumps(list(GRID)), "--mgl", str(MGL),
+def classic(m, kernels_mode: str, smoother: str = "chebyshev", iters: int = ITERS,
+            grid=GRID, mgl: int = MGL, extra=(), jid=None):
+    jid = jid or (f"classic_{kernels_mode}" if smoother == "chebyshev" else
+                  f"classic_{smoother}_{kernels_mode}")
+    argv = ["--prob", PROB, "--grid", json.dumps(list(grid)), "--mgl", str(mgl),
             "--iter", str(iters), "--device", "cuda", "--kernels", kernels_mode,
-            "--smoother", smoother, "--out", OUT_DIR, "--jid", jid]
+            "--smoother", smoother, "--out", OUT_DIR, "--jid", jid, *extra]
     with captured_stderr() as buf:
         result = m.train_voxelfem.main(argv)
     text = buf.getvalue()
@@ -490,15 +534,15 @@ def classic(m, kernels_mode: str, smoother: str = "chebyshev", iters: int = ITER
           f"{jid}: final reference-format lines missing")
     check(math.isfinite(result.compliance) and math.isfinite(result.binary_compliance),
           f"{jid}: final compliance not finite")
-    check(result.densities.shape == GRID, f"densities shape {result.densities.shape}")
+    check(result.densities.shape == tuple(grid), f"densities shape {result.densities.shape}")
     for f in (".vtr", "_densities.npy", "_history.json"):
         path = os.path.join(OUT_DIR, f"{jid}{f}")
         check(os.path.exists(path), f"artifact {path} missing")
     s_per_iter = statistics.median(result.step_seconds[1:])
     print(f"{jid}: compliance by step {[c for _, c, _ in steps]}, cg_iters "
           f"{[n for *_, n in steps]}, s/OC-iter (median of steps 1-{iters - 1}) "
-          f"{s_per_iter:.4f}")
-    return steps, s_per_iter
+          f"{s_per_iter:.4f}, solver {result.solver_stats}")
+    return steps, s_per_iter, result
 
 
 def evaluation(label: str, cli, argv, res_key: str, dims):
@@ -554,8 +598,45 @@ def neural(m, jid: str, grid, mgl: int, vcs: str, steps: int, extra):
     print(f"{jid}: compliance by step {[c for _, c, _, _ in lines]}, "
           f"cg_iters {[n for *_, n in lines]}, s/step (median of steps after "
           f"step 0) {s_step:.4f}, final {result.final_compliance:.6f}, "
-          f"binary {result.binary_compliance:.6f}")
-    return lines, s_step
+          f"binary {result.binary_compliance:.6f}, solver {result.solver_stats}")
+    return lines, s_step, result
+
+
+def solver_settings(m):
+    """The fp32 bound-only MGPCG solve (refined in float64, Chebyshev,
+    kernels on) at one random density, and beside it the same solve with
+    ``cached_ke_dtype="bfloat16"`` and with ``lmax_power_iters=8``: the CG
+    operator is exact, so each compliance within 1e-4 of the reference's;
+    returns the lines to print in the summary (CG iterations, walls)."""
+    import numpy as np
+
+    prob, grid = m.simulator.problem_from_config(m.problem.load_problem(PROB), dims=GRID,
+                                                 dtype=torch.float32, device="cuda")
+    rho = torch.tensor(np.random.default_rng(21).uniform(0.05, 1.0, grid.dims),
+                       dtype=torch.float32, device="cuda")
+    f = prob.force.double().reshape(-1)
+    base = dict(num_levels=MGL, smoother="chebyshev", cheb_degree=1)
+    out, ref = [], None
+    for label, extra in (("fp32 bound-only", {}), ("cached_ke_dtype=bfloat16",
+                                                   {"cached_ke_dtype": "bfloat16"}),
+                         ("lmax_power_iters=8", {"lmax_power_iters": 8})):
+        solve = m.mg.make_mg_solver(prob, m.mg.MGSolverSettings(**base, **extra))
+        solve(rho)  # the first call builds the kernels' state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, iters = solve(rho)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = float(f @ u.reshape(-1))
+        check(math.isfinite(c) and c > 0 and iters < CG_CAP, f"{label}: c {c}, iters {iters}")
+        if ref is None:
+            ref = c
+        rel = abs(c - ref) / abs(ref)
+        check(rel < TOL_ON_OFF, f"{label}: compliance {c} vs fp32 {ref}: rel {rel:.3e}")
+        out.append(f"solver settings {GRID} mgl={MGL} {label}: CG iterations {iters}, "
+                   f"solve {wall:.4f} s, compliance rel to fp32 {rel:.3e}")
+        print(out[-1])
+    return out
 
 
 def agree(label: str, a: float, b: float):
@@ -583,12 +664,12 @@ def main():
     timings = []
     try:
         print(f"== 4. classic: {PROB} {GRID} mgl={MGL}, {ITERS} OC steps")
-        (steps_on, t_on), counts, peak = run_path(
+        (steps_on, t_on, _), counts, peak = run_path(
             m, "classic on", lambda: classic(m, "on"),
             ("apply_k_fine_f32", "apply_k_cached_f32", "cached_stencil",
              "apply_k_fine_f64"))
         total = {k: total[k] + counts[k] for k in total}
-        (steps_off, t_off), _, peak_off = run_path(
+        (steps_off, t_off, _), _, peak_off = run_path(
             m, "classic off", lambda: classic(m, "off"), ())
         agree("classic step-0 compliance on/off", steps_on[0][1], steps_off[0][1])
         timings.append(f"classic {GRID} mgl={MGL}: s/OC-iter on {t_on:.4f} "
@@ -599,7 +680,7 @@ def main():
         star = {}
         for fk, fine32, fine64 in (("variant", "apply_k_fine_elem_f32", "apply_k_fine_f64"),
                                    ("flat32", "apply_k_fine_f32", "apply_k_fine_f64")):
-            (lines, s_step), counts, peak = run_path(
+            (lines, s_step, _), counts, peak = run_path(
                 m, f"neural {fk}",
                 lambda fk=fk: neural(m, f"star_{fk}", GRID, 3, "constrained_sigmoid",
                                      NEURAL_STEPS, ["--fine-kernel", fk]),
@@ -613,14 +694,14 @@ def main():
 
         print(f"== 6. neural bench config: {BRIDGE} {BENCH_GRID} mgl=2 "
               f"maxed_barrier 1024/512x4")
-        (lines_on, s_on), counts, peak = run_path(
+        (lines_on, s_on, _), counts, peak = run_path(
             m, "bench flat",
             lambda: neural(m, "bench_flat", BENCH_GRID, 2, "maxed_barrier",
                            BENCH_STEPS, ["--fine-kernel", "flat"]),
             ("apply_k_fine_f32", "apply_k_cached_f32", "cached_stencil",
              "apply_k_fine_elem_f64"))
         total = {k: total[k] + counts[k] for k in total}
-        (lines_off, s_off), _, peak_off = run_path(
+        (lines_off, s_off, _), _, peak_off = run_path(
             m, "bench off",
             lambda: neural(m, "bench_off", BENCH_GRID, 2, "maxed_barrier", 2,
                            ["--kernels", "off"]), ())
@@ -633,10 +714,10 @@ def main():
               f"{GS_ITERS} OC steps")
         all4 = ("apply_k_fine_f32", "apply_k_cached_f32", "cached_stencil",
                 "apply_k_fine_f64")
-        (gs_on, t_gs_on), counts, peak = run_path(
+        (gs_on, t_gs_on, _), counts, peak = run_path(
             m, "classic gs on", lambda: classic(m, "on", "gs", GS_ITERS), all4)
         total = {k: total[k] + counts[k] for k in total}
-        (gs_off, t_gs_off), _, peak_off = run_path(
+        (gs_off, t_gs_off, _), _, peak_off = run_path(
             m, "classic gs off", lambda: classic(m, "off", "gs", GS_ITERS), ())
         agree("classic gs step-0 compliance on/off", gs_on[0][1], gs_off[0][1])
         rel = abs(gs_on[0][1] - steps_on[0][1]) / abs(steps_on[0][1])
@@ -673,10 +754,124 @@ def main():
         total = {k: total[k] + counts[k] for k in total}
         timings.append(f"eval_voxelfem {dims} mgl={mgl}: wall {wall:.2f} s "
                        f"(peak {peak:.2f} GiB)")
+
+        print(f"== 10. production classic: {PROB} {PROD_GRID} mgl={PROD_MGL}, "
+              f"{PROD_STEPS} OC steps: (a) rebuild every step, (b) --precond-lag "
+              f"{PROD_LAG}, (c) --precond-lag {PROD_LAG} --scan {PROD_SCAN}")
+        (_, _, _), counts, _ = run_path(
+            m, "production warm-up", lambda: classic(
+                m, "on", iters=WARM_STEPS, grid=PROD_GRID, mgl=PROD_MGL,
+                jid="production_warm"), ())
+        total = {k: total[k] + counts[k] for k in total}
+        init = ("--init", os.path.join(OUT_DIR, "production_warm_densities.npy"))
+        prod = {}
+        for run, extra in (("a", init), ("b", init + ("--precond-lag", str(PROD_LAG))),
+                           ("c", init + ("--precond-lag", str(PROD_LAG), "--scan",
+                                         str(PROD_SCAN)))):
+            (steps, _, res), counts, peak = run_path(
+                m, f"production ({run})",
+                lambda extra=extra, run=run: classic(
+                    m, "on", iters=PROD_STEPS, grid=PROD_GRID, mgl=PROD_MGL,
+                    extra=extra, jid=f"production_{run}"),
+                ("apply_k_fine_f32", "apply_k_cached_f32", "cached_stencil",
+                 "apply_k_fine_f64"))
+            total = {k: total[k] + counts[k] for k in total}
+            prod[run] = (steps, res, peak)
+        hist = {run: [c for _, c, _ in v[0]] for run, v in prod.items()}
+        for run in ("b", "c"):
+            rel0 = abs(hist[run][0] - hist["a"][0]) / abs(hist["a"][0])
+            rel_worst = max(abs(x - y) / abs(y) for x, y in zip(hist[run], hist["a"]))
+            print(f"production ({run}) against (a): step 0 rel {rel0:.3e}, "
+                  f"worst step rel {rel_worst:.3e}")
+            check(rel0 < TOL_STEP0, f"production ({run}) step 0 differs: {rel0:.3e}")
+            check(rel_worst < TOL_LAG, f"production ({run}) history differs: {rel_worst:.3e}")
+        builds = {run: v[1].solver_stats["hierarchy_builds"] for run, v in prod.items()}
+        if builds["b"] == PROD_STEPS // PROD_LAG:  # (b) made no early rebuild
+            rel_worst = max(abs(x - y) / abs(y) for x, y in zip(hist["c"], hist["b"]))
+            print(f"production (c) against (b): worst step rel {rel_worst:.3e}")
+            check(rel_worst < TOL_GRAPH, f"production (c) differs from (b): {rel_worst:.3e}")
+        else:
+            print(f"production (b) rebuilt early ({builds['b']} builds): (c) not held to it")
+        check(builds["c"] == PROD_STEPS // PROD_LAG,
+              f"production (c) built the hierarchy {builds['c']} times, "
+              f"expected {PROD_STEPS // PROD_LAG}")
+        st = prod["c"][1].solver_stats
+        check(st["graph_captures"] >= 1 and st["graph_replays"] > 0,
+              f"production (c) replayed no CUDA graph: {st}")
+        for run, (steps, res, peak) in prod.items():
+            mean = statistics.fmean(res.step_seconds)
+            line = (f"production ({run}) {PROD_GRID} mgl={PROD_MGL}: s/OC-iter "
+                    f"{mean:.4f} (mean of {PROD_STEPS}; median of steps 1-"
+                    f"{PROD_STEPS - 1} {statistics.median(res.step_seconds[1:]):.4f}), "
+                    f"hierarchy builds {builds[run]}, cg_iters {[n for *_, n in steps]}, "
+                    f"peak {peak:.2f} GiB")
+            if run == "c":
+                line += (f", graph captures {st['graph_captures']}, replays "
+                         f"{st['graph_replays']}, capture {st['graph_capture_seconds']:.3f} s")
+            timings.append(line)
+
+        print(f"== 11. classic GS under the chunked loop: {GRID} mgl={MGL} --smoother gs "
+              f"from the design of {WARM_STEPS} fresh Chebyshev steps: {GS_ITERS} steps "
+              f"in the host loop, then {GS_LAG_STEPS} with --precond-lag 4 --scan 4")
+        (_, _, _), counts, _ = run_path(
+            m, "classic warm-up", lambda: classic(m, "on", iters=WARM_STEPS,
+                                                  jid="classic_warm"), ())
+        total = {k: total[k] + counts[k] for k in total}
+        init = ("--init", os.path.join(OUT_DIR, "classic_warm_densities.npy"))
+        (gs_host, t_gs_host, _), counts, _ = run_path(
+            m, "classic gs from the warm design",
+            lambda: classic(m, "on", "gs", GS_ITERS, extra=init, jid="classic_gs_warm"),
+            all4)
+        total = {k: total[k] + counts[k] for k in total}
+        (gs_lag, _, res), counts, peak = run_path(
+            m, "classic gs lag 4 scan 4",
+            lambda: classic(m, "on", "gs", GS_LAG_STEPS,
+                            extra=init + ("--precond-lag", "4", "--scan", "4"),
+                            jid="classic_gs_lag"), all4)
+        total = {k: total[k] + counts[k] for k in total}
+        st = res.solver_stats
+        check(st["graph_replays"] > 0, f"classic gs lag: replayed no CUDA graph: {st}")
+        rel_worst = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(gs_lag, gs_host))
+        rel0 = abs(gs_lag[0][1] - gs_host[0][1]) / abs(gs_host[0][1])
+        print(f"classic gs lag against the host loop: step 0 rel {rel0:.3e}, worst of "
+              f"steps 0-{len(gs_host) - 1} rel {rel_worst:.3e}")
+        check(rel_worst < TOL_LAG, f"classic gs lag differs from the host loop: {rel_worst:.3e}")
+        timings.append(f"classic gs {GRID} mgl={MGL} lag 4 scan 4 from the warm design: "
+                       f"s/OC-iter {statistics.fmean(res.step_seconds):.4f} (chunk wall / 4; "
+                       f"host loop from the same design {t_gs_host:.4f}, phase 7 {t_gs_on:.4f}), "
+                       f"graph captures {st['graph_captures']}, replays {st['graph_replays']}, "
+                       f"capture {st['graph_capture_seconds']:.3f} s, peak {peak:.2f} GiB")
+
+        print(f"== 12. neural bench config with --precond-lag 4 --scan 8: {BRIDGE} "
+              f"{BENCH_GRID} mgl=2 maxed_barrier 1024/512x4")
+        (lines_lag, s_lag, res), counts, peak = run_path(
+            m, "bench lag 4 scan 8",
+            lambda: neural(m, "bench_lag", BENCH_GRID, 2, "maxed_barrier", BENCH_STEPS,
+                           ["--fine-kernel", "flat", "--precond-lag", "4", "--scan", "8"]),
+            ("apply_k_fine_f32", "apply_k_cached_f32", "cached_stencil",
+             "apply_k_fine_elem_f64"))
+        total = {k: total[k] + counts[k] for k in total}
+        st = res.solver_stats
+        check(st["graph_replays"] > 0, f"bench lag: replayed no CUDA graph: {st}")
+        rel_worst = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(lines_lag, lines_on))
+        print(f"bench lag against phase 6: worst step rel {rel_worst:.3e}")
+        check(rel_worst < TOL_NEURAL_LAG, f"bench lag differs from phase 6: {rel_worst:.3e}")
+        timings.append(f"neural {BENCH_GRID} lag 4 scan 8: s/step {s_lag:.4f} (phase 6 "
+                       f"{s_on:.4f}), hierarchy builds {st['hierarchy_builds']}, graph "
+                       f"captures {st['graph_captures']}, replays {st['graph_replays']}, "
+                       f"peak {peak:.2f} GiB")
+
+        print(f"== 13. solver settings: make_mg_solver {PROB} {GRID} mgl={MGL}, "
+              "cached_ke_dtype=bfloat16 and lmax_power_iters=8 against the fp32 bound-only "
+              "solve")
+        (lines13, counts, peak) = run_path(m, "solver settings", lambda: solver_settings(m),
+                                           ("apply_k_cached_bf16", "cached_stencil_bf16"))
+        total = {k: total[k] + counts[k] for k in total}
+        timings.extend(lines13)
     finally:
         shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    print("== 10. summary")
+    print("== 14. summary")
     print("launches over the paths:", total)
     for name, n in total.items():
         check(n > 0, f"{name} was launched by no path")
@@ -685,7 +880,8 @@ def main():
     out = []
     main = (f"fine {GRID}", "level 1 (96, 48, 48)")
     for name in ("apply_k_fine_f32", "apply_k_fine_elem_f32", "apply_k_cached_f32",
-                 "cached_stencil", "apply_k_fine_f64", "apply_k_fine_elem_f64"):
+                 "cached_stencil", "apply_k_fine_f64", "apply_k_fine_elem_f64",
+                 "apply_k_cached_bf16", "cached_stencil_bf16"):
         src, rep = CACHED[name] if name in CACHED else FINE[name][:2]
         # top level: 192x96x96 (cached kernels: its level 1); "shapes": every
         # timed shape, the bench grid's and level 2 included

@@ -56,9 +56,30 @@
 // is re-read through L1. Out-of-grid neighbours read the node's own u in
 // place of a bounds branch and multiply it by 0. Bound: bytes, the stencil
 // read once plus u read and f written once.
+//
+// bf16 storage (ndr_cached_stencil_bf16, ndr_apply_k_cached_bf16; the
+// solver's cached_ke_dtype="bfloat16", the TPU kernel's bf16 Ke stream):
+// the same two kernels, instantiated for a stencil stored as bf16. The
+// assembly sums each slot in fp32 in shared memory, as above, and rounds
+// once, to nearest even, when it stores the slot (2 B per slot: 486 B per
+// node in 3-D); the apply widens each slot to fp32 and accumulates in fp32.
+// Both stay bound by bytes, the stencil's half as many of them. The TPU
+// kernel rounds each element's Ke entry and sums the rounded entries; here
+// the assembled sum is rounded once, so no entry is less accurate.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// The stencil's storage types: fp32, or bf16 held as its 16 bits.
+__device__ __forceinline__ void store_slot(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_slot(unsigned short* p, float v) {
+  *p = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float load_slot(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float load_slot(const unsigned short* p) {
+  return __uint_as_float(static_cast<unsigned int>(__ldcs(p)) << 16);
+}
 
 constexpr int kAsmNodes = 64;   // nodes per assembly block
 constexpr int kAsmPhases = 4;   // phases whose row sets a thread loads together
@@ -93,9 +114,9 @@ __host__ __device__ constexpr int bits3(int a) {
   return o;
 }
 
-template <int NDIM>
+template <int NDIM, typename T>
 __global__ void __launch_bounds__(kAsmNodes * Stencil<NDIM>::TPN)
-cached_stencil_kernel(const float4* __restrict__ ke, float* __restrict__ S,
+cached_stencil_kernel(const float4* __restrict__ ke, T* __restrict__ S,
                       int ex, int ey, int ez, int nodes) {
   using St = Stencil<NDIM>;
   constexpr int N = NDIM;
@@ -188,30 +209,30 @@ cached_stencil_kernel(const float4* __restrict__ ke, float* __restrict__ S,
   const int col = t % kAsmNodes;
   if (base + col < nodes) {
     for (int s = t / kAsmNodes; s < St::SLOTS; s += St::TPN) {
-      S[static_cast<long long>(s) * nodes + base + col] = acc[s * stride + col];
+      store_slot(S + static_cast<long long>(s) * nodes + base + col, acc[s * stride + col]);
     }
   }
 }
 
-template <int NDIM>
-int launch_stencil(const float* ke, float* S, int ex, int ey, int ez, cudaStream_t s) {
+template <int NDIM, typename T>
+int launch_stencil(const float* ke, T* S, int ex, int ey, int ez, cudaStream_t s) {
   using St = Stencil<NDIM>;
   constexpr size_t smem = sizeof(float) * St::SLOTS * (kAsmNodes + 1);  // 63 KB in 3-D
   // per launch: the attribute belongs to the current device
   const cudaError_t err = cudaFuncSetAttribute(
-      cached_stencil_kernel<NDIM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cached_stencil_kernel<NDIM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nodes = (ex + 1) * (ey + 1) * (NDIM == 3 ? ez + 1 : 1);
   const unsigned int blocks = (nodes + kAsmNodes - 1) / kAsmNodes;
-  cached_stencil_kernel<NDIM><<<blocks, kAsmNodes * St::TPN, smem, s>>>(
+  cached_stencil_kernel<NDIM, T><<<blocks, kAsmNodes * St::TPN, smem, s>>>(
       reinterpret_cast<const float4*>(ke), S, ex, ey, ez, nodes);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NDIM>
+template <int NDIM, typename T>
 __global__ void __launch_bounds__(kApplyNodes * NDIM)
-cached_apply_kernel(const float* __restrict__ u, const float* __restrict__ S,
+cached_apply_kernel(const float* __restrict__ u, const T* __restrict__ S,
                     float* __restrict__ f, int nx, int ny, int nz) {
   using St = Stencil<NDIM>;
   const int nodes = nx * ny * nz;
@@ -222,7 +243,7 @@ cached_apply_kernel(const float* __restrict__ u, const float* __restrict__ S,
   const int k = n % nz;
   const int j = (n / nz) % ny;
   const int i = n / (nz * ny);
-  const float* Sc = S + static_cast<long long>(c * NDIM) * nodes + n;
+  const T* Sc = S + static_cast<long long>(c * NDIM) * nodes + n;
   float acc = 0.0f;
 #pragma unroll
   for (int o = 0; o < St::NOFF; ++o) {
@@ -234,7 +255,7 @@ cached_apply_kernel(const float* __restrict__ u, const float* __restrict__ S,
     const int m = inside ? n + (si * ny + sj) * nz + sk : n;
 #pragma unroll
     for (int d = 0; d < NDIM; ++d) {
-      const float s = __ldcs(Sc + static_cast<long long>(o * NDIM * NDIM + d) * nodes);
+      const float s = load_slot(Sc + static_cast<long long>(o * NDIM * NDIM + d) * nodes);
       const float v = __ldg(u + static_cast<long long>(m) * NDIM + d);
       acc = fmaf(s, inside ? v : 0.0f, acc);
     }
@@ -242,43 +263,68 @@ cached_apply_kernel(const float* __restrict__ u, const float* __restrict__ S,
   f[static_cast<long long>(n) * NDIM + c] = acc;
 }
 
-}  // namespace
-
-// ke: (ex, ey[, ez], d_pe, d_pe) fp32, 16-B aligned; S: (3^N, N, N) + node
-// dims fp32, written in full. Returns a cudaError_t code.
-extern "C" int ndr_cached_stencil_f32(const void* ke, void* S, int ndim, int ex,
-                                      int ey, int ez, void* stream) {
+template <typename T>
+int stencil_entry(const void* ke, void* S, int ndim, int ex, int ey, int ez,
+                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* kp = static_cast<const float*>(ke);
-  float* sp = static_cast<float*>(S);
+  T* sp = static_cast<T*>(S);
   if (reinterpret_cast<unsigned long long>(ke) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  if (ndim == 3) return launch_stencil<3>(kp, sp, ex, ey, ez, s);
-  if (ndim == 2) return launch_stencil<2>(kp, sp, ex, ey, 1, s);
+  if (ndim == 3) return launch_stencil<3, T>(kp, sp, ex, ey, ez, s);
+  if (ndim == 2) return launch_stencil<2, T>(kp, sp, ex, ey, 1, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// u: node dims + (N,) fp32; S: a ndr_cached_stencil_f32 stencil of the same
-// grid; f: node dims + (N,) fp32, written in full. Returns a cudaError_t code.
-extern "C" int ndr_apply_k_cached_f32(const void* u, const void* S, void* f,
-                                      int ndim, int ex, int ey, int ez,
-                                      void* stream) {
+template <typename T>
+int apply_entry(const void* u, const void* S, void* f, int ndim, int ex, int ey,
+                int ez, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ndim != 2 && ndim != 3) return static_cast<int>(cudaErrorInvalidValue);
   const float* up = static_cast<const float*>(u);
-  const float* sp = static_cast<const float*>(S);
+  const T* sp = static_cast<const T*>(S);
   float* fp = static_cast<float*>(f);
   if (ndim == 3) {
     const int nodes = (ex + 1) * (ey + 1) * (ez + 1);
     const dim3 block(kApplyNodes, 3);
-    cached_apply_kernel<3><<<(nodes + kApplyNodes - 1) / kApplyNodes, block, 0, s>>>(
+    cached_apply_kernel<3, T><<<(nodes + kApplyNodes - 1) / kApplyNodes, block, 0, s>>>(
         up, sp, fp, ex + 1, ey + 1, ez + 1);
   } else {
     const int nodes = (ex + 1) * (ey + 1);
     const dim3 block(kApplyNodes, 2);
-    cached_apply_kernel<2><<<(nodes + kApplyNodes - 1) / kApplyNodes, block, 0, s>>>(
+    cached_apply_kernel<2, T><<<(nodes + kApplyNodes - 1) / kApplyNodes, block, 0, s>>>(
         up, sp, fp, 1, ex + 1, ey + 1);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// ke: (ex, ey[, ez], d_pe, d_pe) fp32, 16-B aligned; S: (3^N, N, N) + node
+// dims, fp32 (_f32) or bf16 (_bf16), written in full. Returns a cudaError_t
+// code.
+extern "C" int ndr_cached_stencil_f32(const void* ke, void* S, int ndim, int ex,
+                                      int ey, int ez, void* stream) {
+  return stencil_entry<float>(ke, S, ndim, ex, ey, ez, stream);
+}
+
+extern "C" int ndr_cached_stencil_bf16(const void* ke, void* S, int ndim, int ex,
+                                       int ey, int ez, void* stream) {
+  return stencil_entry<unsigned short>(ke, S, ndim, ex, ey, ez, stream);
+}
+
+// u: node dims + (N,) fp32; S: a stencil of the same grid from the assembly
+// of the same storage type; f: node dims + (N,) fp32, written in full.
+// Returns a cudaError_t code.
+extern "C" int ndr_apply_k_cached_f32(const void* u, const void* S, void* f,
+                                      int ndim, int ex, int ey, int ez,
+                                      void* stream) {
+  return apply_entry<float>(u, S, f, ndim, ex, ey, ez, stream);
+}
+
+extern "C" int ndr_apply_k_cached_bf16(const void* u, const void* S, void* f,
+                                       int ndim, int ex, int ey, int ez,
+                                       void* stream) {
+  return apply_entry<unsigned short>(u, S, f, ndim, ex, ey, ez, stream);
 }

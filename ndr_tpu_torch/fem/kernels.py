@@ -14,10 +14,18 @@ apply_k_fine_elem_f64  apply_k_pallas_df_flat        fine_elem.cu
 apply_k_cached_f32     apply_k_pallas_cached         cached_stencil.cu
 cached_stencil         ke_stream_layout, the cached  cached_stencil.cu
                        kernel's operand layout
+apply_k_cached_bf16    apply_k_pallas_cached with a  cached_stencil.cu
+                       bf16 Ke stream
+cached_stencil_bf16    ke_stream_layout cast to      cached_stencil.cu
+                       bf16
 =====================  ============================  ====================
 
 Plain twins: :func:`apply_k_fine_plain` for the four fine wrappers,
-:func:`apply_k_cached_f32_plain` and :func:`cached_stencil_plain`.
+:func:`apply_k_cached_f32_plain`, :func:`cached_stencil_plain`,
+:func:`apply_k_cached_bf16_plain` and :func:`cached_stencil_bf16_plain`.
+The bf16 pair stores the stencil in bf16 (the solver's
+``cached_ke_dtype="bfloat16"``): the assembly sums in fp32 and rounds
+each slot once, the apply widens each slot and sums in fp32.
 The four fine applies are two designs, each instantiated for fp32 and
 for float64 (the refinement's true residual; Hopper has native FP64, so
 no hi/lo split). Both are element-centric in the basis of the element's
@@ -37,7 +45,9 @@ the JAX package's fine-kernel switch.
 A wrapper takes its twin only for tensors on the CPU. For a CUDA tensor
 it launches its kernel or raises: there is no fallback. Each launch adds
 one to the wrapper's entry in :data:`launches`, so a run can show that it
-went through the kernels.
+went through the kernels. Under CUDA-graph capture a wrapper records its
+kernel without launching it; the graph's owner takes the capture's counts
+back out and adds them again at every replay (:func:`add_launches`).
 
 The kernels are built at first use (:func:`build`) with ``nvcc`` for
 ``sm_90a``, one compiler process per source, all started together, into
@@ -70,6 +80,8 @@ _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: Name suffix of the C entry points of each kernel type.
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+#: ... and of each storage type of the cached levels' stencil.
+_STENCIL_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches: Dict[str, int] = {
@@ -79,6 +91,8 @@ launches: Dict[str, int] = {
     "cached_stencil": 0,
     "apply_k_fine_f64": 0,
     "apply_k_fine_elem_f64": 0,
+    "apply_k_cached_bf16": 0,
+    "cached_stencil_bf16": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -98,6 +112,14 @@ build_info: Dict[str, object] = {}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` to :data:`launches`: the kernels a CUDA
+    graph launches per replay (negative ``times`` takes a capture's counts
+    back out: a capture records kernels, it launches none)."""
+    for name, n in counts.items():
+        launches[name] += times * n
 
 
 # ---------------------------------------------------------------------------
@@ -161,10 +183,13 @@ def build() -> float:
         for fn in ("fine_set_blocks", "fine_elem_geometry", "apply_k_fine",
                    "apply_k_fine_elem"):
             getattr(lib, f"ndr_{fn}_{sfx}").restype = i32
-    lib.ndr_cached_stencil_f32.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
-    lib.ndr_cached_stencil_f32.restype = i32
-    lib.ndr_apply_k_cached_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-    lib.ndr_apply_k_cached_f32.restype = i32
+    for sfx in _STENCIL_SUFFIX.values():
+        getattr(lib, f"ndr_cached_stencil_{sfx}").argtypes = [ptr, ptr, i32, i32, i32,
+                                                              i32, ptr]
+        getattr(lib, f"ndr_apply_k_cached_{sfx}").argtypes = [ptr, ptr, ptr, i32, i32,
+                                                              i32, i32, ptr]
+        getattr(lib, f"ndr_cached_stencil_{sfx}").restype = i32
+        getattr(lib, f"ndr_apply_k_cached_{sfx}").restype = i32
     lib.ndr_error_string.argtypes = [i32]
     lib.ndr_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -294,16 +319,31 @@ def _set_fine_blocks(K0: torch.Tensor, grid: Grid) -> None:
     """Copy K0's reflection blocks, in K0's dtype, into the constant memory
     of both fine kernels of that dtype unless this very tensor, unchanged
     since, is already there (once per problem, not per launch). Holding the
-    tensor keeps its memory from being reused."""
+    tensor keeps its memory from being reused. Raises under CUDA-graph
+    capture if an upload is needed."""
     key = (K0.device.index, K0.dtype)
     held = _fine_k0.get(key)
     if held is not None and held[0] is K0 and held[1] == K0._version:
         return
+    if torch.cuda.is_current_stream_capturing():
+        # the upload is a host-side copy that a graph would not replay
+        raise RuntimeError(
+            f"{_FINE_NAMES[K0.dtype]}: K0's reflection blocks must be uploaded "
+            "before CUDA-graph capture (run the captured function once first)")
     B = reflection_blocks(K0, grid.ndim, K0.dtype)
     set_blocks = getattr(_lib, f"ndr_fine_set_blocks_{_SUFFIX[K0.dtype]}")
     code = set_blocks(B.data_ptr(), grid.ndim, _stream(K0.device))
     _check_launch(code, f"{_FINE_NAMES[K0.dtype]} (K0 blocks upload)")
     _fine_k0[key] = (K0, K0._version)
+
+
+def upload_fine_blocks(K0: torch.Tensor, grid: Grid) -> None:
+    """Make the fine kernels of K0's dtype read K0's reflection blocks (a
+    no-op where they already do): before a CUDA graph that launches them is
+    captured or replayed, since their constant memory is not the graph's."""
+    _library()
+    with torch.cuda.device(K0.device):
+        _set_fine_blocks(K0, grid)
 
 
 def _apply_fine(u, young, K0, grid: Grid, dtype: torch.dtype) -> torch.Tensor:
@@ -457,24 +497,42 @@ def cached_stencil_plain(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
     return S
 
 
-def cached_stencil(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
-    """The node stencil (:func:`stencil_shape`, fp32) of a cached level
-    from its per-element fp32 stack ``Ke`` (dims + (d_pe, d_pe))."""
+def cached_stencil_bf16_plain(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """Plain twin of :func:`cached_stencil_bf16`: the fp32 stencil, each
+    slot rounded to bf16 once (to nearest even)."""
+    return cached_stencil_plain(Ke, grid).to(torch.bfloat16)
+
+
+def _cached_stencil(Ke: torch.Tensor, grid: Grid, dtype: torch.dtype) -> torch.Tensor:
+    sfx = _STENCIL_SUFFIX[dtype]
+    name = "cached_stencil" if dtype == torch.float32 else f"cached_stencil_{sfx}"
     if not _on_cuda(Ke):
-        return cached_stencil_plain(Ke, grid)
+        return cached_stencil_plain(Ke, grid).to(dtype)
     _check_grid(grid)
     d_pe = grid.nodes_per_elem * grid.ndim
     _check("Ke", Ke, torch.float32, grid.dims + (d_pe, d_pe), Ke.device)
     if Ke.data_ptr() % 16:
         raise ValueError("Ke must be 16-byte aligned (the kernel reads float4)")
     lib = _library()
-    S = torch.empty(stencil_shape(grid), dtype=torch.float32, device=Ke.device)
+    S = torch.empty(stencil_shape(grid), dtype=dtype, device=Ke.device)
     with torch.cuda.device(Ke.device):
-        code = lib.ndr_cached_stencil_f32(Ke.data_ptr(), S.data_ptr(), grid.ndim,
-                                          *_dims3(grid), _stream(Ke.device))
-    _check_launch(code, "cached_stencil")
-    launches["cached_stencil"] += 1
+        code = getattr(lib, f"ndr_cached_stencil_{sfx}")(
+            Ke.data_ptr(), S.data_ptr(), grid.ndim, *_dims3(grid), _stream(Ke.device))
+    _check_launch(code, name)
+    launches[name] += 1
     return S
+
+
+def cached_stencil(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """The node stencil (:func:`stencil_shape`, fp32) of a cached level
+    from its per-element fp32 stack ``Ke`` (dims + (d_pe, d_pe))."""
+    return _cached_stencil(Ke, grid, torch.float32)
+
+
+def cached_stencil_bf16(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """The node stencil of :func:`cached_stencil`, stored in bf16: each
+    slot summed in fp32 and rounded once."""
+    return _cached_stencil(Ke, grid, torch.bfloat16)
 
 
 def apply_k_cached_f32_plain(u, stencil, grid: Grid) -> torch.Tensor:
@@ -489,21 +547,47 @@ def apply_k_cached_f32_plain(u, stencil, grid: Grid) -> torch.Tensor:
     return f
 
 
+def apply_k_cached_bf16_plain(u, stencil, grid: Grid) -> torch.Tensor:
+    """Plain twin of :func:`apply_k_cached_bf16`: the bf16 stencil widened
+    to fp32, then :func:`apply_k_cached_f32_plain`."""
+    return apply_k_cached_f32_plain(u, stencil.to(u.dtype), grid)
+
+
+def _apply_cached(u, stencil, grid: Grid, dtype: torch.dtype) -> torch.Tensor:
+    sfx = _STENCIL_SUFFIX[dtype]
+    name = f"apply_k_cached_{sfx}"
+    if not _on_cuda(u):
+        return apply_k_cached_f32_plain(u, stencil.to(u.dtype), grid)
+    _check_grid(grid)
+    _check("u", u, torch.float32, grid.nodes_per_dim + (grid.ndim,), u.device)
+    _check("stencil", stencil, dtype, stencil_shape(grid), u.device)
+    lib = _library()
+    f = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        code = getattr(lib, f"ndr_{name}")(
+            u.data_ptr(), stencil.data_ptr(), f.data_ptr(),
+            grid.ndim, *_dims3(grid), _stream(u.device))
+    _check_launch(code, name)
+    launches[name] += 1
+    return f
+
+
 def apply_k_cached_f32(u: torch.Tensor, stencil: torch.Tensor,
                        grid: Grid) -> torch.Tensor:
     """f = K u in fp32 from a cached level's node stencil
     (:func:`cached_stencil`)."""
-    if not _on_cuda(u):
-        return apply_k_cached_f32_plain(u, stencil, grid)
-    _check_grid(grid)
-    _check("u", u, torch.float32, grid.nodes_per_dim + (grid.ndim,), u.device)
-    _check("stencil", stencil, torch.float32, stencil_shape(grid), u.device)
-    lib = _library()
-    f = torch.empty_like(u)
-    with torch.cuda.device(u.device):
-        code = lib.ndr_apply_k_cached_f32(
-            u.data_ptr(), stencil.data_ptr(), f.data_ptr(),
-            grid.ndim, *_dims3(grid), _stream(u.device))
-    _check_launch(code, "apply_k_cached_f32")
-    launches["apply_k_cached_f32"] += 1
-    return f
+    return _apply_cached(u, stencil, grid, torch.float32)
+
+
+def apply_k_cached_bf16(u: torch.Tensor, stencil: torch.Tensor,
+                        grid: Grid) -> torch.Tensor:
+    """f = K u in fp32 from a bf16 node stencil (:func:`cached_stencil_bf16`),
+    each slot widened to fp32."""
+    return _apply_cached(u, stencil, grid, torch.bfloat16)
+
+
+def apply_k_cached(u: torch.Tensor, stencil: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """The cached apply of the stencil's storage type (fp32 or bf16)."""
+    if stencil.dtype == torch.bfloat16:
+        return apply_k_cached_bf16(u, stencil, grid)
+    return apply_k_cached_f32(u, stencil, grid)

@@ -11,26 +11,32 @@ refinement around fp32 MGPCG. A level whose Galerkin Ke would exceed
 
 On CUDA with kernels on, the fine level applies K through the fp32 fine
 kernel, every non-coarsest cached level through
-:func:`kernels.apply_k_cached_f32` from its node stencil (assembled once
-per hierarchy build by :func:`kernels.cached_stencil`), and the
-refinement's true residual through the float64 fine kernel. Which fine
-kernels (node- or element-centric) is the ``fine_kernel`` setting, with
-the JAX package's dispatch (:func:`kernels.fine_kernels`). The GS sweep
-itself is torch ops: each colour is updated on its own stride-2
-sub-lattice, and its residual update K du reads only what touches that
-colour (:func:`apply_k_parity`).
+:func:`kernels.apply_k_cached` from its node stencil (assembled once per
+hierarchy build by :func:`kernels.cached_stencil`, or in bf16 under
+``cached_ke_dtype="bfloat16"``), and the refinement's true residual
+through the float64 fine kernel. Which fine kernels (node- or
+element-centric) is the ``fine_kernel`` setting, with the JAX package's
+dispatch (:func:`kernels.fine_kernels`). The GS sweep itself is torch
+ops: each colour is updated on its own stride-2 sub-lattice, and its
+residual update K du reads only what touches that colour
+(:func:`apply_k_parity`). lambda_max is the pencil bound, or with
+``lmax_power_iters`` the smaller of it and an inflated power estimate.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): a lagged preconditioner. lambda_max is the pencil bound alone, as
-with the JAX default ``lmax_power_iters=0`` (power iteration is not
-ported).
+A lagged preconditioner (:class:`PrecondState`, ``solve.build_precond``)
+is a hierarchy built at an earlier density: the CG operator always uses
+the current one, the state only preconditions. Under the trainers'
+chunked loops on CUDA its preconditioner call is replayed from a CUDA
+graph (:class:`PrecondGraph`), the port's counterpart of the JAX
+package's device-side ``lax.scan`` loop; rebuilds write into the
+captured tensors in place, so one capture serves a run.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Callable, List, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,10 +47,21 @@ from ndr_tpu_torch.fem import operators as ops
 from ndr_tpu_torch.fem import solvers
 from ndr_tpu_torch.fem.simulator import FEMProblem
 
-_TODO_LAG = "ROADMAP.md Queue 1 item 3 (lagged preconditioner)"
 _TODO_X64 = "ROADMAP.md Queue 2 item 6 (float64 end to end on CUDA)"
 _TODO_DEGREE2 = "ROADMAP.md Queue 1 item 4 (degree-2 paths)"
 SMOOTHERS = ("gs", "chebyshev")
+#: Storage types of the intermediate cached levels (``cached_ke_dtype``).
+CACHED_KE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+
+#: Counts since the last :func:`reset_stats`: hierarchy builds, and the
+#: preconditioner's CUDA graphs (captures, replays, capture seconds).
+stats: Dict[str, float] = {"hierarchy_builds": 0, "graph_captures": 0,
+                           "graph_replays": 0, "graph_capture_seconds": 0.0}
+
+
+def reset_stats() -> None:
+    for k in stats:
+        stats[k] = 0.0 if k == "graph_capture_seconds" else 0
 
 
 # ---------------------------------------------------------------------------
@@ -404,7 +421,7 @@ def _apply_k_level(lv: LevelState, u: torch.Tensor) -> torch.Tensor:
         ndim = lv.grid.ndim
         return restrict(_apply_k_level(lv.parent, prolongate(u, ndim)), ndim)
     if lv.stencil is not None:
-        return kernels.apply_k_cached_f32(u, lv.stencil, lv.grid)
+        return kernels.apply_k_cached(u, lv.stencil, lv.grid)
     return ops.apply_k_cached(u, lv.Ke, lv.grid)
 
 
@@ -415,7 +432,8 @@ def _zero_dirichlet(lv: LevelState, u: torch.Tensor) -> torch.Tensor:
 def build_level_states(
     cfg: MGConfig, prob: FEMProblem, young: torch.Tensor,
     smoother: str = "chebyshev", use_kernels: bool = False,
-    fine_kernel: str = "flat32",
+    fine_kernel: str = "flat32", power_iters: int = 0,
+    cached_ke_dtype: Optional[str] = None,
 ) -> List[LevelState]:
     """The hierarchy's operators for one modulus field (``Dinv`` and
     ``lmax`` only for the Chebyshev smoother).
@@ -425,9 +443,21 @@ def build_level_states(
     CUDA kernels, which take fp32 degree-1 hierarchies.
     On CUDA tensors any other hierarchy raises rather than run the plain
     ops on the card; on CPU tensors the plain ops serve it (the wrappers
-    run their plain twins there anyway)."""
+    run their plain twins there anyway).
+
+    ``cached_ke_dtype="bfloat16"`` stores the intermediate cached levels
+    of an fp32 hierarchy in bf16: their node stencil with kernels on,
+    their Ke stack without (cast as the JAX package casts it). Their
+    diagonal blocks, the next level's Galerkin product and the coarsest
+    level stay fp32. ``power_iters`` > 0 takes lambda_max as the smaller
+    of the pencil bound and (1.2 / 1.05) x a power estimate of that many
+    iterations (:func:`_estimate_lmax`), read to a Python float once here."""
     if smoother not in SMOOTHERS:
         raise ValueError(f"smoother={smoother!r}: one of {SMOOTHERS}")
+    if cached_ke_dtype not in CACHED_KE_DTYPES:
+        raise ValueError(f"cached_ke_dtype={cached_ke_dtype!r}: one of "
+                         f"{list(CACHED_KE_DTYPES)}")
+    stats["hierarchy_builds"] += 1
     apply32, apply64 = kernels.fine_kernels(fine_kernel)
     degree = cfg.levels[0].grid.degree
     if use_kernels and young.device.type == "cuda":
@@ -439,6 +469,7 @@ def build_level_states(
             raise NotImplementedError(
                 f"CUDA kernels on degree-{degree} elements: {_TODO_DEGREE2}")
     use_kernels = use_kernels and young.dtype == torch.float32 and degree == 1
+    low = CACHED_KE_DTYPES[cached_ke_dtype] if young.dtype == torch.float32 else None
     states = []
     last = cfg.num_levels - 1
     prev_ke = None
@@ -454,11 +485,15 @@ def build_level_states(
             else:
                 Ke = build_level_ke(cfg, young, l)
             M = ops.node_diag_blocks_cached(Ke, lev.grid)
+            # prev_ke keeps the fp32 stack for the next level's coarsen_ke
             prev_ke = Ke
             if use_kernels and l != last:
-                # prev_ke keeps the stack for the next level's coarsen_ke
-                stencil = kernels.cached_stencil(Ke.contiguous(), lev.grid)
+                assemble = (kernels.cached_stencil_bf16 if low == torch.bfloat16
+                            else kernels.cached_stencil)
+                stencil = assemble(Ke.contiguous(), lev.grid)
                 Ke = None
+            elif low is not None and l != last:
+                Ke = Ke.to(low)
         else:  # transfer
             M = ops.node_diag_blocks_from_elem_diag(
                 build_level_ke_diag(cfg, young, l), lev.grid)
@@ -482,8 +517,34 @@ def build_level_states(
     if smoother == "chebyshev":
         for l, lv in enumerate(states):
             lv.Dinv = ops.invert_blocks(lv.Minv_rows)
-            lv.lmax = cfg.lmax_bounds[l]
+            bound = cfg.lmax_bounds[l]
+            if power_iters <= 0:
+                lv.lmax = bound
+                continue
+            est = float((1.2 / 1.05) * _estimate_lmax(lv, power_iters))
+            lv.lmax = min(bound, est)
     return states
+
+
+def _estimate_lmax(lv: LevelState, iters: int) -> torch.Tensor:
+    """Power-iteration estimate of lambda_max(D^-1 K) on the free DOFs,
+    times a 1.05 safety factor (the JAX package's ``_estimate_lmax``). The
+    start vector is normal noise from a generator seeded with 7 on the
+    level's device; the JAX package seeds ``jax.random.PRNGKey(7)``, whose
+    numbers differ, so the iterates do and the converged estimate
+    agrees."""
+    M = lv.Minv_rows
+    gen = torch.Generator(device=M.device).manual_seed(7)
+    v = _zero_dirichlet(lv, torch.randn(lv.grid.nodes_per_dim + (lv.grid.ndim,),
+                                        generator=gen, dtype=M.dtype, device=M.device))
+    lam = torch.ones((), dtype=M.dtype, device=M.device)
+    for _ in range(iters):
+        w = _dinv_apply(lv, _zero_dirichlet(lv, _apply_k_level(lv, v)))
+        ww = torch.dot(w.reshape(-1), w.reshape(-1))
+        lam = torch.sqrt(ww / torch.clamp(torch.dot(v.reshape(-1), v.reshape(-1)),
+                                          min=1e-30))
+        v = w / torch.clamp(torch.sqrt(ww), min=1e-30)
+    return 1.05 * lam
 
 
 def _dinv_apply(lv: LevelState, r: torch.Tensor) -> torch.Tensor:
@@ -638,7 +699,7 @@ def _apply_k_parity_stencil(lv: LevelState, du_p: torch.Tensor,
                                         for d in range(N)]))
         sub = tuple(slice(qd, None, 2) for qd in q)
         Sq = torch.stack([S[(slots.index(o), slice(None), slice(None)) + sub]
-                          for o in offs])                 # (k, N, N, nq...)
+                          for o in offs]).to(du_p.dtype)  # (k, N, N, nq...)
         # node q + 2m + o is index m + (q + o - parity) // 2 of the class
         win = torch.stack([
             dpad[tuple(slice(1 + (q[d] + o[d] - parity[d]) // 2,
@@ -828,6 +889,14 @@ class MGSolverSettings:
     # CUDA kernels: True/False or "auto" (= on for CUDA tensors)
     use_kernels: object = "auto"
     ke_cache_limit_bytes: int = 1400 * 2**20
+    # storage type of the intermediate cached levels of fp32 hierarchies:
+    # None (fp32) or "bfloat16" (half the bytes; the JAX package notes that
+    # it hurts the preconditioner: the rounding perturbs the coarse
+    # elements' rigid-body null space)
+    cached_ke_dtype: Optional[str] = None
+    # power-iteration budget of the Chebyshev lambda_max estimate (min'ed
+    # with the pencil bound); 0 = the bound alone
+    lmax_power_iters: int = 0
     # "mg" = multigrid preconditioner; "jacobi" = block-Jacobi PCG
     precond: str = "mg"
     # coarsest solve: "cholesky", "ns" or "auto" (ns for fp32
@@ -838,6 +907,11 @@ class MGSolverSettings:
     # (fine_elem.cu's element-centric fp32) or "flat" (element-centric
     # float64 residual); the JAX package's NDR_FINE_KERNEL switch
     fine_kernel: str = "flat32"
+    # under a lagged preconditioner, rebuild level 0's density-dependent
+    # smoother state (young, Minv_rows, Dinv) from the current density
+    # every solve; the coarser levels and the coarsest factor keep their
+    # lagged values
+    precond_refresh_fine: bool = True
 
 
 # "auto" coarse-solver size gate (Newton–Schulz costs ~30 dense n^3
@@ -867,24 +941,175 @@ def _use_refined(prob: FEMProblem, settings: MGSolverSettings) -> bool:
     return settings.mixed_precision and prob.force.dtype == torch.float32
 
 
-def _make_preconditioner(cfg, settings, levels):
+def _build_hierarchy(cfg: MGConfig, prob: FEMProblem, young: torch.Tensor,
+                     settings: MGSolverSettings):
+    """(levels, coarse): the level operators for ``young`` and the coarsest
+    factor (None for the block-Jacobi preconditioner)."""
+    levels = build_level_states(
+        cfg, prob, young, smoother=settings.smoother,
+        use_kernels=resolve_use_kernels(settings.use_kernels, prob.device),
+        fine_kernel=settings.fine_kernel, power_iters=settings.lmax_power_iters,
+        cached_ke_dtype=settings.cached_ke_dtype)
+    if settings.precond == "jacobi":
+        if levels[0].Dinv is None:  # a GS hierarchy builds no Dinv
+            levels[0].Dinv = ops.invert_blocks(levels[0].Minv_rows)
+        return levels, None
+    return levels, factor_coarsest(levels, _resolve_coarse_solver(settings, levels))
+
+
+class PrecondGraph:
+    """One preconditioner call ``z = fn(r)`` captured as a CUDA graph.
+
+    ``fn`` runs once eagerly on a side stream first (lazy set-up, and the
+    fine kernels' K0 upload, which a capture refuses), then once under
+    capture into the static input ``r`` and output ``z``. A call copies its
+    argument into ``r``, replays the graph and returns a copy of ``z``, so
+    the next replay cannot overwrite what the caller holds. Kernel launch
+    counts (:data:`kernels.launches`) take the capture's records back out
+    and add them again at every replay. A capture or replay that fails
+    raises: there is no eager fallback."""
+
+    def __init__(self, fn, example: torch.Tensor, lv0: LevelState,
+                 warmup: bool = True):
+        self.key = (tuple(example.shape), example.dtype)
+        self.lv0 = lv0
+        self.r = example.clone()
+        self._upload()
+        dev = example.device
+        if warmup:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                fn(self.r)
+            torch.cuda.current_stream(dev).wait_stream(side)
+        t0 = time.perf_counter()
+        before = dict(kernels.launches)
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.z = fn(self.r)
+        finally:
+            self.counts = {k: kernels.launches[k] - n for k, n in before.items()}
+            kernels.add_launches(self.counts, -1)   # recorded, not launched
+        torch.cuda.synchronize(dev)
+        stats["graph_captures"] += 1
+        stats["graph_capture_seconds"] += time.perf_counter() - t0
+
+    def _upload(self) -> None:
+        # the fine kernels' constant memory is not the graph's: make it hold
+        # this hierarchy's K0 (a no-op unless another K0 was uploaded since)
+        if self.lv0.fine_apply is not None:
+            kernels.upload_fine_blocks(self.lv0.K0, self.lv0.grid)
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        self._upload()
+        self.r.copy_(r)
+        self.graph.replay()
+        kernels.add_launches(self.counts)
+        stats["graph_replays"] += 1
+        return self.z.clone()
+
+
+@dataclasses.dataclass
+class PrecondState:
+    """A lagged preconditioner (the JAX package's precond leaves): the
+    level operators built at one density and the coarsest factor (None
+    for the block-Jacobi preconditioner). With ``use_graph`` its
+    preconditioner calls on CUDA are replayed from one
+    :class:`PrecondGraph`, captured at the first call and kept while
+    rebuilds write into the same tensors (``build_precond(..., into=)``);
+    a rebuild that changes a level's lambda_max drops it (the Chebyshev
+    coefficients are constants of the graph)."""
+
+    levels: List[LevelState]
+    coarse: Optional[Tuple[str, torch.Tensor]]
+    use_graph: bool = False
+    graph: Optional[PrecondGraph] = None
+
+    def graphed(self, fn):
+        """``fn`` (this state's preconditioner) replayed from its graph."""
+        def call(r):
+            if self.graph is None or self.graph.key != (tuple(r.shape), r.dtype):
+                self.graph = PrecondGraph(fn, r, self.levels[0])
+            return self.graph(r)
+        return call
+
+
+_STATE_FIELDS = ("young", "Ke", "Minv_rows", "Dinv", "stencil")
+
+
+def build_precond(cfg: MGConfig, prob: FEMProblem, rho: torch.Tensor,
+                  settings: MGSolverSettings, into: Optional[PrecondState] = None,
+                  use_graph: bool = False) -> PrecondState:
+    """The hierarchy and coarsest factor for ``rho``, as a
+    :class:`PrecondState` for ``mgpcg_solve(..., precond_state=)`` (the JAX
+    package's ``build_precond_leaves``). With ``into`` the new operators are
+    copied into that state's tensors, which keeps its CUDA graph valid;
+    ``use_graph`` turns graph replay on for a new state."""
+    young = prob.young(rho)
+    if _use_refined(prob, settings):
+        young = young.to(torch.float32)
+    levels, coarse = _build_hierarchy(cfg, prob, young, settings)
+    if into is None:
+        return PrecondState(levels, coarse, use_graph=use_graph)
+    for dst, src in zip(into.levels, levels):
+        for f in _STATE_FIELDS:
+            a, b = getattr(dst, f), getattr(src, f)
+            if (a is None) != (b is None):
+                raise ValueError(f"precond state: {f} differs in kind from the rebuild")
+            if a is not None:
+                a.copy_(b)
+        if dst.lmax != src.lmax:
+            dst.lmax = src.lmax
+            into.graph = None
+    if coarse is not None:
+        into.coarse[1].copy_(coarse[1])
+    return into
+
+
+def _refresh_fine_level(prob: FEMProblem, lv0: LevelState, young: torch.Tensor) -> None:
+    """Rebuild level 0's density-dependent smoother state (young,
+    Minv_rows, Dinv; the GS colour solve reads Minv_rows) from the current
+    density, in place (the JAX package's ``_refresh_fine_level``). Writing
+    into the level's own tensors keeps every transfer level's parent link
+    on the refreshed level, and a captured graph valid."""
+    M0 = ops.node_diag_blocks(young, prob.K0, lv0.grid)
+    lv0.young.copy_(young)
+    lv0.Minv_rows.copy_(M0)
+    if lv0.Dinv is not None:
+        lv0.Dinv.copy_(ops.invert_blocks(M0))
+
+
+def _solve_levels(cfg, prob, young, settings, state: Optional[PrecondState]):
+    """(levels, coarse, lv0_op) of one solve: the preconditioner's levels
+    and coarsest factor, built for ``young`` or the lagged ``state``'s; and
+    the level-0 operator of the CG, always at ``young``."""
+    if state is None:
+        levels, coarse = _build_hierarchy(cfg, prob, young, settings)
+        return levels, coarse, levels[0]
+    levels = state.levels
+    if settings.precond_refresh_fine:
+        _refresh_fine_level(prob, levels[0], young)
+        return levels, state.coarse, levels[0]
+    return levels, state.coarse, dataclasses.replace(levels[0], young=young)
+
+
+def _make_preconditioner(settings, levels, coarse, state=None):
     lv0 = levels[0]
     if settings.precond == "jacobi":
-        if lv0.Dinv is None:  # a GS hierarchy builds no Dinv
-            lv0.Dinv = ops.invert_blocks(lv0.Minv_rows)
-
         def precond(r):
             return _dinv_apply(lv0, r)
-    else:
-        chol = factor_coarsest(levels, _resolve_coarse_solver(settings, levels))
+        return precond
 
-        def precond(r):
-            s = mg_preconditioner(
-                levels, chol, r, settings.mg_iterations,
-                settings.mg_smoothing_iterations, settings.full_multigrid,
-                settings.smoother, settings.cheb_degree,
-            )
-            return _zero_dirichlet(lv0, s)
+    def precond(r):
+        s = mg_preconditioner(
+            levels, coarse, r, settings.mg_iterations,
+            settings.mg_smoothing_iterations, settings.full_multigrid,
+            settings.smoother, settings.cheb_degree,
+        )
+        return _zero_dirichlet(lv0, s)
+    if state is not None and state.use_graph and lv0.Minv_rows.is_cuda:
+        return state.graphed(precond)
     return precond
 
 
@@ -894,27 +1119,24 @@ def mgpcg_solve(
     rho: torch.Tensor,
     u0: Optional[torch.Tensor],
     settings: MGSolverSettings,
-    precond_state=None,
+    precond_state: Optional[PrecondState] = None,
 ) -> Tuple[torch.Tensor, int]:
     """Full MGPCG equilibrium solve K(rho) u = f: rebuild the Galerkin
-    hierarchy for ``rho``, factor the coarsest level, run PCG from the
-    warm start. Float32 problems with ``settings.mixed_precision`` run as
-    float64 iterative refinement around the fp32 MGPCG."""
-    if precond_state is not None:
-        raise NotImplementedError(f"precond_state: {_TODO_LAG}")
+    hierarchy for ``rho`` (or precondition with the lagged
+    ``precond_state``, whose level 0 is refreshed to ``rho`` under
+    ``settings.precond_refresh_fine``), factor the coarsest level, run PCG
+    from the warm start. The CG operator always uses ``rho``. Float32
+    problems with ``settings.mixed_precision`` run as float64 iterative
+    refinement around the fp32 MGPCG."""
     if _use_refined(prob, settings):
-        return _mgpcg_solve_refined(cfg, prob, rho, u0, settings)
+        return _mgpcg_solve_refined(cfg, prob, rho, u0, settings, precond_state)
     young = prob.young(rho)
-    levels = build_level_states(
-        cfg, prob, young, smoother=settings.smoother,
-        use_kernels=resolve_use_kernels(settings.use_kernels, prob.device),
-        fine_kernel=settings.fine_kernel)
-    lv0 = levels[0]
+    levels, coarse, lv0 = _solve_levels(cfg, prob, young, settings, precond_state)
 
     def apply_a(u):
         return _zero_dirichlet(lv0, _apply_k_level(lv0, _zero_dirichlet(lv0, u)))
 
-    precond = _make_preconditioner(cfg, settings, levels)
+    precond = _make_preconditioner(settings, levels, coarse, precond_state)
     b = _zero_dirichlet(lv0, prob.force)
     if u0 is None or settings.zero_init:
         u0 = torch.zeros_like(b)
@@ -930,24 +1152,21 @@ def _mgpcg_solve_refined(
     rho: torch.Tensor,
     u0: Optional[torch.Tensor],
     settings: MGSolverSettings,
+    precond_state: Optional[PrecondState] = None,
 ) -> Tuple[torch.Tensor, int]:
     """Float64 iterative refinement around the fp32 MGPCG.
 
-    Outer loop (float64): r = b - K u with the exact float64 operator;
-    stop when ||r|| <= tol * ||b||. Inner loop: fp32 MGPCG on the
-    correction system, targeting the final tolerance directly, with a
-    second pass only when the needed reduction exceeds what one fp32
-    solve can deliver (cold starts). With kernels on, the float64
-    residual is the float64 fine kernel of ``settings.fine_kernel`` at
-    every tol.
+    Outer loop (float64): r = b - K u with the exact float64 operator at
+    the current ``rho``; stop when ||r|| <= tol * ||b||. Inner loop: fp32
+    MGPCG on the correction system, targeting the final tolerance
+    directly, with a second pass only when the needed reduction exceeds
+    what one fp32 solve can deliver (cold starts). With kernels on, the
+    float64 residual is the float64 fine kernel of ``settings.fine_kernel``
+    at every tol.
     """
     f32, f64 = torch.float32, torch.float64
     young32 = prob.young(rho).to(f32)
-    levels = build_level_states(
-        cfg, prob, young32, smoother=settings.smoother,
-        use_kernels=resolve_use_kernels(settings.use_kernels, prob.device),
-        fine_kernel=settings.fine_kernel)
-    lv0 = levels[0]
+    levels, coarse, lv0 = _solve_levels(cfg, prob, young32, settings, precond_state)
 
     K0_64 = prob.K0.to(f64)
     young64 = ops.element_young_modulus(
@@ -961,7 +1180,7 @@ def _mgpcg_solve_refined(
     def apply_a32(v):
         return _zero_dirichlet(lv0, _apply_k_level(lv0, _zero_dirichlet(lv0, v)))
 
-    precond32 = _make_preconditioner(cfg, settings, levels)
+    precond32 = _make_preconditioner(settings, levels, coarse, precond_state)
 
     b64 = _zero_dirichlet(lv0, force64)
     b_norm = torch.linalg.norm(b64.reshape(-1)).item()
@@ -1005,7 +1224,9 @@ def max_feasible_coarsenings(grid: Grid) -> int:
 
 
 def make_mg_solver(prob: FEMProblem, settings: MGSolverSettings):
-    """Returns a SolveFn (rho, u0) -> (u, iters) closure for topopt.
+    """Returns a SolveFn (rho, u0=None, precond=None) -> (u, iters)
+    closure for topopt; ``solve.build_precond(rho, into=None,
+    use_graph=False)`` builds the lagged ``precond`` (:func:`build_precond`).
 
     Requested coarsenings are clamped to what the grid admits; a grid
     that cannot coarsen at all falls back to block-Jacobi PCG.
@@ -1022,6 +1243,10 @@ def make_mg_solver(prob: FEMProblem, settings: MGSolverSettings):
     def solve(rho, u0=None, precond=None):
         return mgpcg_solve(cfg, prob, rho, u0, settings, precond_state=precond)
 
+    def build(rho, into=None, use_graph=False):
+        return build_precond(cfg, prob, rho, settings, into=into, use_graph=use_graph)
+
     solve.cfg = cfg
     solve.settings = settings
+    solve.build_precond = build
     return solve

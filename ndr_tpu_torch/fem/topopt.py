@@ -115,11 +115,16 @@ class TopologyOptimizationProblem:
     def physical_density(self, x: torch.Tensor) -> torch.Tensor:
         return apply_filter_chain(x, self.filters)
 
-    def objective(self, x, u0=None):
-        """Returns (compliance, u, cg_iters); compliance = 1/2 f^T u."""
+    def objective(self, x, u0=None, precond=None):
+        """Returns (compliance, u, cg_iters); compliance = 1/2 f^T u.
+        ``precond``: a lagged preconditioner for the MGPCG solve
+        (``solve.build_precond``)."""
         with torch.no_grad():
             rho = self.physical_density(x)
-            u, iters = self.solve(rho, u0)
+            if precond is None:
+                u, iters = self.solve(rho, u0)
+            else:
+                u, iters = self.solve(rho, u0, precond=precond)
             c = _compliance(self.prob.force, u)
         return c, u, iters
 
@@ -186,8 +191,10 @@ def oc_step(
     state: OCState,
     m: float = 0.2,
     ctol: float = 1e-6,
+    precond=None,
 ):
-    """One Optimality-Criteria step.
+    """One Optimality-Criteria step (``precond``: a lagged preconditioner
+    state, passed to the solve).
 
     x <- clip(x * sqrt(dJ / (lambda dc)), [x - m, x + m] ∩ [0, 1]) with
     lambda found by bracketed bisection on the volume constraint of the
@@ -199,7 +206,7 @@ def oc_step(
     """
     x0 = state.x
     st = _scalar_type(x0)
-    c, u, iters = top.objective(x0, state.u)
+    c, u, iters = top.objective(x0, state.u, precond=precond)
     dJ = top.objective_gradient(x0, u)
     dc = top.constraint_gradient(x0)
     lo = torch.clamp(x0 - m, min=0.0)

@@ -4,6 +4,17 @@
 Smoothing + projection filters, total-volume constraint, MGPCG
 compliance objective (tol=1e-4, FMG, 1 MG iteration, 2 smoothing sweeps,
 warm-started), OC optimizer, run as a host loop of eager steps.
+
+``precond_lag`` > 1 rebuilds the multigrid hierarchy every that many
+steps (the CG operator stays exact; the lagged hierarchy only
+preconditions), and early, on the next step, when a step's CG count
+exceeds the first lagged solve's by more than 4. ``scan_chunk`` > 1 is the
+JAX package's device-side chunked loop: chunks of that many steps (a
+multiple of the lag) in which each block of ``lag`` steps rebuilds once at
+its start, with no early rebuild; the metrics are logged, and callbacks
+and snapshots run, at chunk boundaries; the steps that do not fill a chunk
+run in the host loop. On CUDA the chunk replays each preconditioner call
+from a CUDA graph (``multigrid.PrecondGraph``), captured once per run.
 """
 
 from __future__ import annotations
@@ -32,7 +43,11 @@ class ClassicResult:
     binary_compliance: float
     history: List[float]
     seconds: float
-    step_seconds: List[float]      # wall time of each OC step (no callbacks)
+    step_seconds: List[float]      # wall time of each OC step (no callbacks;
+                                   # chunked steps: the chunk's wall / chunk)
+    # multigrid.stats over the OC steps: hierarchy builds, CUDA-graph
+    # captures, replays and capture seconds
+    solver_stats: dict = dataclasses.field(default_factory=dict)
 
 
 def _not_ported(what: str, item: str):
@@ -64,20 +79,19 @@ def ground_truth_topopt(
     shards: int = 0,
     precond_lag: int = 0,
     scan_chunk: int = 0,
+    solver_overrides: Optional[dict] = None,
 ) -> ClassicResult:
     """Run classic SIMP TO with the OC optimizer on ``device``.
 
     Defaults are ``ndr_tpu``'s: fp32 hot path with float64-refined
     equilibrium, Chebyshev smoother of degree 1 per smoothing sweep.
+    ``solver_overrides``: ``MGSolverSettings`` fields to replace (e.g.
+    ``{"cached_ke_dtype": "bfloat16"}``).
     """
     if optimizer != "OC":
         _not_ported(f"optimizer={optimizer!r}", "Queue 1 item 4 (ops/lbfgs.py)")
     if (shards if isinstance(shards, int) else max(shards)) > 1:
         _not_ported("shards", "Queue 1 item 6 (parallel/mesh.py)")
-    if precond_lag > 1:
-        _not_ported("precond_lag > 1", "Queue 1 item 3 (lagged preconditioner)")
-    if scan_chunk > 1:
-        _not_ported("scan_chunk > 1", "Queue 1 item 3 (device-side chunked loop)")
     device = torch.device(device)
     dtype = dtype or torch.float32
     # mgl=0 means the plain-CG exact-solve path (reference's direct solve)
@@ -106,6 +120,7 @@ def ground_truth_topopt(
             cheb_degree=1,
             use_kernels=use_kernels,
         )
+        settings = dataclasses.replace(settings, **(solver_overrides or {}))
         solve = mg.make_mg_solver(prob, settings)
         mixed = settings.mixed_precision and dtype == torch.float32
     else:
@@ -124,29 +139,88 @@ def ground_truth_topopt(
 
     history: List[float] = []
     step_seconds: List[float] = []
+    use_lag = precond_lag > 1 and hasattr(solve, "build_precond")
+    lag = precond_lag if use_lag else 0
+
+    def build_precond(x, into=None, use_graph=False):
+        with torch.no_grad():
+            return solve.build_precond(top.physical_density(x), into=into,
+                                       use_graph=use_graph)
+
+    # host loop: the lagged state, its age and the first lagged CG count
+    lag_state = {"precond": None, "age": 0, "it_ref": None}
+
+    def host_step(s):
+        if not use_lag:
+            return topopt.oc_step(top, s, m=oc_move, ctol=oc_ctol)
+        ls = lag_state
+        if ls["precond"] is None or ls["age"] >= lag:
+            ls["precond"] = build_precond(s.x)
+            ls["age"], ls["it_ref"] = 0, None
+        s, metrics = topopt.oc_step(top, s, m=oc_move, ctol=oc_ctol,
+                                    precond=ls["precond"])
+        ls["age"] += 1
+        if ls["it_ref"] is None:
+            ls["it_ref"] = metrics["cg_iters"]
+        elif metrics["cg_iters"] > ls["it_ref"] + 4:
+            ls["age"] = lag  # the lagged hierarchy stopped paying: rebuild next step
+        return s, metrics
+
+    def log_step(i, dt, metrics):
+        c2 = 2.0 * metrics["compliance"]
+        history.append(c2)
+        if i % log_every == 0 or i == max_iter - 1:
+            log(
+                f"Total Steps: {i}, Runtime: {dt:.2f}, Compliance loss "
+                f"{c2:.6f}, constraint {metrics['constraint']:.2e}, "
+                f"lambda {metrics['lambda']:.4g}, "
+                f"cg_iters {metrics['cg_iters']}\n"
+            )
+
+    def boundary(i, s):
+        if callback is not None:
+            callback(i, s)
+        if snapshot_cb is not None:
+            snapshot_cb(i, s, lambda s=s: top.physical_density(s.x))
+
+    chunk = 0
+    if scan_chunk > 1 and hasattr(solve, "cfg"):
+        chunk = max(1, scan_chunk // lag) * lag if lag else scan_chunk
+    block = lag or 1  # steps per hierarchy build inside a chunk
+    chunk_precond = None
+    stats0 = dict(mg.stats)
     t_start = time.perf_counter()
     t_iter = t_start
     with timers.section("OC optimization"):
-        for idx in range(max_iter):
+        idx = 0
+        while chunk and idx + chunk <= max_iter:
+            t_chunk = time.perf_counter()
+            chunk_metrics = []
+            for j in range(chunk):
+                if j % block == 0:
+                    chunk_precond = build_precond(state.x, into=chunk_precond,
+                                                  use_graph=device.type == "cuda")
+                state, metrics = topopt.oc_step(top, state, m=oc_move, ctol=oc_ctol,
+                                                precond=chunk_precond)
+                chunk_metrics.append(metrics)
+            now = time.perf_counter()  # oc_step ends on host reads: synced
+            dt = (now - t_chunk) / chunk
+            for j, metrics in enumerate(chunk_metrics):
+                step_seconds.append(dt)
+                log_step(idx + j, dt, metrics)
+            idx += chunk
+            t_iter = time.perf_counter()
+            boundary(idx - 1, state)
+        for idx in range(idx, max_iter):
             t_step = time.perf_counter()
-            state, metrics = topopt.oc_step(top, state, m=oc_move, ctol=oc_ctol)
+            state, metrics = host_step(state)
             now = time.perf_counter()  # oc_step ends on host reads: synced
             step_seconds.append(now - t_step)
-            c2 = 2.0 * metrics["compliance"]
-            history.append(c2)
-            if idx % log_every == 0 or idx == max_iter - 1:
-                log(
-                    f"Total Steps: {idx}, Runtime: {now - t_iter:.2f}, Compliance loss "
-                    f"{c2:.6f}, constraint {metrics['constraint']:.2e}, "
-                    f"lambda {metrics['lambda']:.4g}, "
-                    f"cg_iters {metrics['cg_iters']}\n"
-                )
+            log_step(idx, now - t_iter, metrics)
             t_iter = time.perf_counter()
-            if callback is not None:
-                callback(idx, state)
-            if snapshot_cb is not None:
-                snapshot_cb(idx, state,
-                            lambda s=state: top.physical_density(s.x))
+            boundary(idx, state)
+    solver_stats = {k: mg.stats[k] - v for k, v in stats0.items()}
+    chunk_precond = lag_state["precond"] = None  # free the lagged hierarchies
 
     # Final evaluation + binary compliance with the reference's semantics:
     # both the binarized field and the final soft field pass through the
@@ -180,4 +254,5 @@ def ground_truth_topopt(
         history=history,
         seconds=seconds,
         step_seconds=step_seconds,
+        solver_stats=solver_stats,
     )

@@ -8,9 +8,14 @@ training step is one eager forward pass, the solve outside autograd (on
 the whole gradient, as ``stop_gradient`` does in the JAX package), one
 backward pass and one ``torch.optim`` step.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the device-side chunked loop (``scan_chunk > 1``) and the lagged
-preconditioner (``precond_lag > 1``), Queue 1 item 3.
+``precond_lag`` > 1 (static filters only) rebuilds the multigrid hierarchy
+from the current network's density every that many steps; the CG operator
+stays exact. ``scan_chunk`` > 1 (static filters only) is the JAX package's
+device-side chunked loop: chunks of that many steps (a multiple of the
+lag), each block of ``lag`` steps rebuilding once at its start, the
+metrics logged and checkpoints taken at chunk boundaries, the first chunk
+counted as warm-up; on CUDA each preconditioner call is replayed from a
+CUDA graph (``multigrid.PrecondGraph``).
 """
 
 from __future__ import annotations
@@ -30,13 +35,6 @@ from ndr_tpu_torch.io.problem import ProblemConfig
 from ndr_tpu_torch.models import mlp
 from ndr_tpu_torch.ops import filters as flt
 from ndr_tpu_torch.ops import volume as vol
-
-_TODO_SCAN = "Queue 1 item 3 (device-side chunked loop)"
-_TODO_LAG = "Queue 1 item 3 (lagged preconditioner)"
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
 
 
 def get_mgrid(sidelen: Sequence[int], domain=None, dtype=torch.float32,
@@ -75,6 +73,11 @@ class NeuralTOConfig:
     cheb_degree: int = 2
     # hidden-layer matmul precision of the MLP (see models.mlp)
     matmul_precision: str = "high"
+    # power-iteration budget of the Chebyshev lambda_max estimate; 0 = the
+    # pencil bound alone (MGSolverSettings.lmax_power_iters)
+    lmax_power_iters: int = 0
+    # rebuild the hierarchy every `precond_lag` steps (0/1: every step);
+    # honoured on the static-filter path only
     precond_lag: int = 0
 
 
@@ -134,8 +137,6 @@ def build_trainer(
     ``state`` carries the network and optimizer over from another
     resolution; the warm-start ``u`` is always reset for the new grid.
     """
-    if ncfg.precond_lag > 1:
-        _not_ported("precond_lag > 1", _TODO_LAG)
     device = torch.device(device)
     prob, grid = problem_from_config(cfg, dims=dims, dtype=dtype, device=device)
     density_fn, hard = make_density_fn(ncfg, filters)
@@ -170,14 +171,18 @@ def build_trainer(
         zero_init=False,
         smoother=ncfg.smoother,
         cheb_degree=ncfg.cheb_degree,
+        lmax_power_iters=ncfg.lmax_power_iters,
     )
     solve = mg.make_mg_solver(prob, settings)
     max_volume = cfg.max_volume
 
-    def train_step(state: NeuralTOState):
+    def train_step(state: NeuralTOState, precond=None):
         rho = density_fn(state.model, coords, max_volume)
         with torch.no_grad():
-            u, iters = solve(rho.detach(), state.u)
+            if precond is None:
+                u, iters = solve(rho.detach(), state.u)
+            else:
+                u, iters = solve(rho.detach(), state.u, precond=precond)
         c = 2.0 * topopt.compliance_with_adjoint(rho, u, prob)
         loss = c
         if not hard:
@@ -198,8 +203,16 @@ def build_trainer(
     u0 = torch.zeros(prob.force.shape, dtype=torch.float64 if mixed else dtype,
                      device=device)
     state0 = NeuralTOState(model=model, optimizer=optimizer, u=u0, step=step)
+
+    def build_precond_from_state(state: NeuralTOState, into=None, use_graph=False):
+        """The lagged preconditioner for the current network's density."""
+        with torch.no_grad():
+            rho = density_fn(state.model, coords, max_volume)
+            return solve.build_precond(rho, into=into, use_graph=use_graph)
+
     aux = dict(prob=prob, grid=grid, coords=coords, density_fn=density_fn,
-               solve=solve, mlp_cfg=mlp_cfg, max_volume=max_volume)
+               solve=solve, mlp_cfg=mlp_cfg, max_volume=max_volume,
+               build_precond_from_state=build_precond_from_state)
     return state0, train_step, aux
 
 
@@ -219,40 +232,79 @@ def train(
 ) -> Tuple[NeuralTOState, List[float], dict]:
     """Single-resolution training loop (one leg of the multires loop).
     ``aux["step_seconds"]`` holds each step's wall time, the device
-    synchronized at its end."""
-    if scan_chunk > 1:
-        _not_ported("scan_chunk > 1", _TODO_SCAN)
+    synchronized at its end (chunked steps: the chunk's wall / chunk);
+    ``aux["solver_stats"]`` the ``multigrid.stats`` of the loop."""
     state, train_step, aux = build_trainer(cfg, ncfg, dims=dims, filters=filters,
                                            dtype=dtype, device=device, state=state)
     device = state.u.device
+    build_pc = aux["build_precond_from_state"]
     history: List[float] = []
     step_seconds: List[float] = []
-    t0 = time.perf_counter()
-    t_warm = t0  # reset after step 0 to exclude the first step's set-up
-    for i in range(max_iter):
-        t_step = time.perf_counter()
-        state, metrics = train_step(state)
-        if filters is not None:
-            filters.update(i)  # per-step schedule update
+
+    def log_step(i, step_no, metrics):
         c = float(metrics["compliance"])
-        _sync(device)
-        step_seconds.append(time.perf_counter() - t_step)
         history.append(c)
-        if i == 0:
-            t_warm = time.perf_counter()
         if i % log_every == 0 or i == max_iter - 1:
             log(
-                f"Total Steps: {state.step}, Compliance loss {c:.6f}, "
+                f"Total Steps: {step_no}, Compliance loss {c:.6f}, "
                 f"loss {float(metrics['loss']):.6f}, "
                 f"cg_iters {int(metrics['cg_iters'])}\n"
             )
+
+    stats0 = dict(mg.stats)
+    t0 = time.perf_counter()
+    t_warm = t0  # reset after the first step (chunk) to exclude its set-up
+    n_warm = 1   # steps inside the warm-up window
+    i = 0
+    lag = ncfg.precond_lag if filters is None and ncfg.precond_lag > 1 else 0
+    if scan_chunk > 1 and filters is None:
+        chunk = max(1, scan_chunk // lag) * lag if lag else scan_chunk
+        block = lag or 1  # steps per hierarchy build inside a chunk
+        precond = None
+        while i + chunk <= max_iter:
+            t_chunk = time.perf_counter()
+            chunk_metrics = []
+            for j in range(chunk):
+                if j % block == 0:
+                    precond = build_pc(state, into=precond,
+                                       use_graph=device.type == "cuda")
+                state, metrics = train_step(state, precond=precond)
+                chunk_metrics.append(metrics)
+            # one read-back per chunk
+            chunk_metrics = [{k: float(v) for k, v in m.items()} for m in chunk_metrics]
+            _sync(device)
+            dt = (time.perf_counter() - t_chunk) / chunk
+            for j, metrics in enumerate(chunk_metrics):
+                step_seconds.append(dt)
+                log_step(i + j, state.step - chunk + 1 + j, metrics)
+            i += chunk
+            if i == chunk:
+                t_warm, n_warm = time.perf_counter(), chunk
+            if checkpoint_cb is not None:
+                checkpoint_cb(i - 1, state)
+
+    precond = None
+    for i in range(i, max_iter):
+        t_step = time.perf_counter()
+        if lag and i % lag == 0:
+            precond = build_pc(state)
+        state, metrics = train_step(state, precond=precond)
+        if filters is not None:
+            filters.update(i)  # per-step schedule update
+        _sync(device)
+        step_seconds.append(time.perf_counter() - t_step)
+        log_step(i, state.step, metrics)
+        if i == 0:
+            t_warm, n_warm = time.perf_counter(), 1
         if checkpoint_cb is not None:
             checkpoint_cb(i, state)
+    precond = None  # free the lagged hierarchy
     t1 = time.perf_counter()
     log(f"Resolution runtime: {t1 - t0:.2f}s "
         f"({max_iter / max(t1 - t0, 1e-9):.2f} it/s; steady-state "
-        f"{max(max_iter - 1, 1) / max(t1 - t_warm, 1e-9):.2f} it/s)\n")
+        f"{max(max_iter - n_warm, 1) / max(t1 - t_warm, 1e-9):.2f} it/s)\n")
     aux["step_seconds"] = step_seconds
+    aux["solver_stats"] = {k: mg.stats[k] - v for k, v in stats0.items()}
     return state, history, aux
 
 
@@ -281,6 +333,7 @@ def train_multires(
     aspect = np.asarray(cfg.domain_corners[1])
     history_all: List[float] = []
     step_seconds: List[float] = []
+    solver_stats: dict = {}
     aux = None
     for idx, delta in enumerate(resolution_deltas):
         dims = tuple(int(d) for d in np.asarray(base_dims) + delta * aspect)
@@ -296,5 +349,8 @@ def train_multires(
         )
         history_all.extend(history)
         step_seconds.extend(aux["step_seconds"])
+        solver_stats = {k: v + solver_stats.get(k, 0)
+                        for k, v in aux["solver_stats"].items()}
     aux["step_seconds"] = step_seconds
+    aux["solver_stats"] = solver_stats
     return state, history_all, aux

@@ -1,5 +1,10 @@
 """Classic-SIMP CLI driver (counterpart of ``ndr_tpu/training/train_voxelfem.py``).
 
+Beyond the JAX CLI's flags: ``--device``, ``--kernels``, and ``--init``
+(start from a saved design, e.g. to run a lagged preconditioner past the
+first large OC moves, as the JAX package's lag measurement does after
+its warm-up steps).
+
 Example:
     python -m ndr_tpu_torch.training.train_voxelfem --prob problems/2d/mbb_beam.json \\
         --iter 1500 --mgl 2 --optim OC --jid myrun --device cuda
@@ -52,10 +57,17 @@ def main(argv=None):
     p.add_argument("--log-every", default=1, type=int)
     p.add_argument("--shards", default="0",
                    help="grid decomposition over devices (not ported yet)")
+    p.add_argument("--init", default=None,
+                   help="start from this design (a .npy of the grid's dims, e.g. "
+                        "the <jid>_densities.npy of an earlier run) instead of "
+                        "the uniform volume fraction")
     p.add_argument("--precond-lag", default=0, type=int,
-                   help="rebuild the MG hierarchy every K OC steps (not ported yet)")
+                   help="rebuild the MG hierarchy every K OC steps, and early "
+                        "after a CG-count jump (the CG operator stays exact)")
     p.add_argument("--scan", default=0, type=int,
-                   help="device-side chunked OC loop (not ported yet)")
+                   help="chunked OC loop of N steps (a multiple of the lag): "
+                        "metrics and callbacks at chunk boundaries; on CUDA the "
+                        "preconditioner replays from a CUDA graph")
     args = p.parse_args(argv)
 
     setup()
@@ -104,6 +116,7 @@ def main(argv=None):
                 if "," in args.shards else int(args.shards)),
         precond_lag=args.precond_lag,
         scan_chunk=args.scan,
+        init=np.load(args.init) if args.init else None,
     )
     np.save(os.path.join(args.out, f"{title}_densities.npy"), result.densities)
     export.write_vtr(os.path.join(args.out, f"{title}"),

@@ -44,6 +44,9 @@ class XDGResult:
     binary_compliance: float
     binary_volume: float
     densities: np.ndarray          # final density field
+    # multigrid.stats of the training loop (hierarchy builds, CUDA-graph
+    # captures and replays)
+    solver_stats: dict = dataclasses.field(default_factory=dict)
 
 
 def main(argv=None) -> XDGResult:
@@ -86,9 +89,12 @@ def main(argv=None) -> XDGResult:
                    help="hidden-layer matmul precision of the MLP "
                         "(default: NeuralTOConfig's)")
     p.add_argument("--scan", default=0, type=int,
-                   help="device-side chunked loop (not ported yet)")
+                   help="chunked loop of N steps (static filters only): one "
+                        "read-back per chunk; on CUDA the preconditioner "
+                        "replays from a CUDA graph")
     p.add_argument("--precond-lag", default=0, type=int,
-                   help="rebuild the MG hierarchy every N steps (not ported yet)")
+                   help="rebuild the MG hierarchy every N steps (static "
+                        "filters only; the CG operator stays exact)")
     # multiresolution curriculum
     p.add_argument("--res-interval", default=0, type=int,
                    help="grid-size delta between multires resolutions")
@@ -246,7 +252,8 @@ def main(argv=None) -> XDGResult:
         }, f)
     return XDGResult(history=history, step_seconds=aux["step_seconds"],
                      final_compliance=c_final, binary_compliance=c_binary,
-                     binary_volume=b_vol, densities=rho)
+                     binary_volume=b_vol, densities=rho,
+                     solver_stats=aux["solver_stats"])
 
 
 if __name__ == "__main__":

@@ -3,7 +3,9 @@
 
     python -m ndr_tpu_torch.utils.profile_oc \\
         [--prob problems/3d/cantilever_flexion.json] [--grid "[192,96,96]"] \\
-        [--mgl 3] [--steps 3] [--kernels on,off] [--smoother chebyshev|gs]
+        [--mgl 3] [--steps 3] [--kernels on,off] [--smoother chebyshev|gs] \\
+        [--precond-lag K] [--scan C] [--settings '{"cached_ke_dtype": "bfloat16"}'] \\
+        [--warm N]
 
 For each kernels setting it runs ``2 + steps + 1`` OC steps on CUDA:
 
@@ -19,6 +21,19 @@ For each kernels setting it runs ``2 + steps + 1`` OC steps on CUDA:
    idle share 1 - busy / wall, the number of device ops, and the device
    ops that took the most time.
 
+``--precond-lag`` and ``--scan`` run the trainer's lagged preconditioner
+and chunked loop, ``--settings`` a JSON object of ``MGSolverSettings``
+fields to replace. With ``--scan`` the callbacks come at chunk boundaries
+(on CUDA the preconditioner replays from a CUDA graph, whose capture falls
+in the first chunk), so the run is three chunks instead: one of warm-up,
+one with the synced sections (the replays timed as "MG preconditioner
+(graph replay)"), and one traced, whose wall, busy time and device ops are
+reported per step. Each run also prints its hierarchy builds and the
+graph's captures, replays and capture seconds. ``--warm N`` starts each
+run from the design of N fresh OC steps (untimed), as the JAX package's
+``scripts/profile_oc.py --warm`` does: from the uniform start a lagged
+hierarchy stalls CG after the first large OC moves.
+
 With ``--smoother gs`` the GS sweeps are also tallied per level: in the
 synced steps each sweep is timed between two syncs (sweeps per step, ms
 per sweep, their share of "solve total"), and after the run one sweep of
@@ -32,6 +47,7 @@ from __future__ import annotations
 import argparse
 import ast
 import contextlib
+import json
 import math
 import statistics
 import time
@@ -60,6 +76,7 @@ SECTIONS = (
     ("hierarchy: Galerkin Ke + diag blocks", mg, "build_level_states"),
     ("coarsest: dense K + factor", mg, "factor_coarsest"),
     ("MG preconditioner", mg, "mg_preconditioner"),
+    ("MG preconditioner (graph replay)", mg.PrecondGraph, "__call__"),
     ("solve total", mg, "mgpcg_solve"),
     ("adjoint gradient + filter backprop",
      topopt.TopologyOptimizationProblem, "objective_gradient"),
@@ -79,7 +96,7 @@ def synced_sections(on: list, seconds: dict, calls: dict, sections=SECTIONS):
         saved.append((owner, attr, fn))
 
         def timed(*args, _fn=fn, _label=label, **kwargs):
-            if not on[0]:
+            if not on[0] or torch.cuda.is_current_stream_capturing():
                 return _fn(*args, **kwargs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -151,27 +168,29 @@ def report_gs_sweeps(tag: str, seconds, calls, last, steps: int, solve_s: float)
 
 
 def report(tag: str, unit: str, sections, seconds, calls, steps: int, synced,
-           wall, prof):
+           wall, prof, traced_steps: int = 1):
     """Print the synced steps' median time (in ``unit``), the sections'
-    ms/step and the traced step's device busy time, idle share and top
-    device ops."""
+    ms/step and the traced window's (``traced_steps`` steps) device busy
+    time, idle share and top device ops."""
     print(f"{tag} {unit} with synced sections (median of {steps} steps) "
           f"{statistics.median(synced):.4f}")
     for label, *_ in sections:
         print(f"{tag}   {label:40s} {1e3 * seconds[label] / steps:9.2f} ms/step"
               f"  ({calls[label] / steps:.1f} calls/step)")
     busy, n_ops, top, port = device_summary(prof)
+    k = traced_steps
+    what = "step" if k == 1 else f"chunk ({k} steps, per step)"
     if n_ops == 0:
-        print(f"{tag} traced step wall {1e3 * wall:.1f} ms; device time not "
+        print(f"{tag} traced {what} wall {1e3 * wall / k:.1f} ms; device time not "
               "measured (the trace holds no device events)")
         return
-    print(f"{tag} traced step wall {1e3 * wall:.1f} ms, device busy "
-          f"{1e3 * busy:.1f} ms, idle share {1 - busy / wall:.3f}, "
-          f"{n_ops} device ops")
+    print(f"{tag} traced {what} wall {1e3 * wall / k:.1f} ms, device busy "
+          f"{1e3 * busy / k:.1f} ms, idle share {1 - busy / wall:.3f}, "
+          f"{n_ops / k:.0f} device ops")
     for name, s, count in top:
-        print(f"{tag}   {name[:72]:72s} {1e3 * s:8.2f} ms  x{count}")
+        print(f"{tag}   {name[:72]:72s} {1e3 * s / k:8.2f} ms  x{count / k:.0f}")
     for name, s, count in port:
-        print(f"{tag} port kernel {name[:60]:60s} {1e3 * s:8.2f} ms  x{count}")
+        print(f"{tag} port kernel {name[:60]:60s} {1e3 * s / k:8.2f} ms  x{count / k:.0f}")
 
 
 def device_summary(prof):
@@ -194,38 +213,59 @@ def device_summary(prof):
 
 
 def profile(cfg, dims, mgl: int, steps: int, kernels_mode: str, device,
-            smoother: str = "chebyshev"):
+            smoother: str = "chebyshev", lag: int = 0, scan: int = 0,
+            overrides=None, warm_steps: int = 0):
     tag = f"[{kernels_mode}]"
+    use_kernels = {"on": True, "off": False}[kernels_mode]
+    init = None
+    if warm_steps:
+        init = ground_truth_topopt(
+            cfg, dims=dims, max_iter=warm_steps, multigrid_levels=mgl,
+            smoother=smoother, use_kernels=use_kernels, device=device,
+            log=lambda s: None, solver_overrides=overrides).densities
     on, seconds, calls = [False], defaultdict(float), defaultdict(int)
     gs_s, gs_n, gs_last = defaultdict(float), defaultdict(int), {}
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA])
-    traced = WARMUP + steps
+    if scan > 1:  # three chunks: warm-up (the capture), synced, traced
+        chunk = max(1, scan // lag) * lag if lag > 1 else scan
+        warm, n_synced, n_traced = chunk, chunk, chunk
+    else:
+        warm, n_synced, n_traced = WARMUP, steps, 1
+    traced = warm + n_synced   # the first traced step
+    total = traced + n_traced
 
     def callback(idx, state):
-        # runs after step idx: switch the timing mode of step idx + 1
-        on[0] = WARMUP - 1 <= idx < traced - 1
+        # runs after step idx (chunked: after the chunk that ends at idx):
+        # switch the timing mode of what follows
+        on[0] = warm - 1 <= idx < traced - 1
         if idx == traced - 1:
             torch.cuda.synchronize()
             prof.start()
-        elif idx == traced:
+        elif idx == total - 1:
             torch.cuda.synchronize()
             prof.stop()
 
     torch.cuda.reset_peak_memory_stats()
-    with synced_sections(on, seconds, calls), gs_sweep_tally(on, gs_s, gs_n, gs_last):
+    tally = gs_sweep_tally(on, gs_s, gs_n, gs_last) if scan <= 1 else contextlib.nullcontext()
+    with synced_sections(on, seconds, calls), tally:
         result = ground_truth_topopt(
-            cfg, dims=dims, max_iter=traced + 1, multigrid_levels=mgl,
-            smoother=smoother, use_kernels={"on": True, "off": False}[kernels_mode],
-            device=device, callback=callback, log=lambda s: None)
+            cfg, dims=dims, max_iter=total, multigrid_levels=mgl,
+            smoother=smoother, use_kernels=use_kernels, init=init,
+            device=device, callback=callback, log=lambda s: None,
+            precond_lag=lag, scan_chunk=scan, solver_overrides=overrides)
     peak = torch.cuda.max_memory_allocated() / 2**30
 
-    report(tag, "s/OC-iter", SECTIONS, seconds, calls, steps, result.step_seconds[WARMUP:traced],
-           result.step_seconds[traced], prof)
-    print(f"{tag} peak memory {peak:.2f} GiB")
+    report(tag, "s/OC-iter", SECTIONS, seconds, calls, n_synced,
+           result.step_seconds[warm:traced], sum(result.step_seconds[traced:total]),
+           prof, n_traced)
+    st = result.solver_stats
+    print(f"{tag} peak memory {peak:.2f} GiB; {total} steps: hierarchy builds "
+          f"{st['hierarchy_builds']}, graph captures {st['graph_captures']} "
+          f"({st['graph_capture_seconds']:.3f} s), replays {st['graph_replays']}")
     if gs_last:
-        report_gs_sweeps(tag, gs_s, gs_n, gs_last, steps, seconds["solve total"])
+        report_gs_sweeps(tag, gs_s, gs_n, gs_last, n_synced, seconds["solve total"])
 
 
 def main(argv=None):
@@ -236,15 +276,26 @@ def main(argv=None):
     p.add_argument("--steps", default=3, type=int)
     p.add_argument("--kernels", default="on,off")
     p.add_argument("--smoother", default="chebyshev", choices=mg.SMOOTHERS)
+    p.add_argument("--precond-lag", default=0, type=int)
+    p.add_argument("--scan", default=0, type=int)
+    p.add_argument("--settings", default=None,
+                   help='JSON object of MGSolverSettings fields to replace, e.g. '
+                        '\'{"lmax_power_iters": 8}\'')
+    p.add_argument("--warm", default=0, type=int,
+                   help="start from the design of this many fresh OC steps")
     args = p.parse_args(argv)
 
     setup()
     device = resolve_device("cuda")
     cfg = load_problem(args.prob)
     dims = tuple(ast.literal_eval(args.grid))
-    print(f"profile_oc: {args.prob} {dims} mgl={args.mgl} smoother={args.smoother}")
+    overrides = json.loads(args.settings) if args.settings else None
+    print(f"profile_oc: {args.prob} {dims} mgl={args.mgl} smoother={args.smoother} "
+          f"precond_lag={args.precond_lag} scan={args.scan} settings={overrides} "
+          f"warm={args.warm}")
     for kernels_mode in args.kernels.split(","):
-        profile(cfg, dims, args.mgl, args.steps, kernels_mode, device, args.smoother)
+        profile(cfg, dims, args.mgl, args.steps, kernels_mode, device, args.smoother,
+                args.precond_lag, args.scan, overrides, args.warm)
 
 
 if __name__ == "__main__":

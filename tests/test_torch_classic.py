@@ -154,11 +154,14 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_voxelfem.main(base)          # --device defaults to cuda
-    for extra in (["--shards", "2"], ["--precond-lag", "2"], ["--scan", "4"],
-                  ["--optim", "LBFGS"]):
+    for extra in (["--shards", "2"], ["--optim", "LBFGS"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             train_voxelfem.main(base + ["--device", "cpu"] + extra)
-    # the GS smoother is ported
+    # the GS smoother, the lagged preconditioner and the chunked loop are ported
     result = train_voxelfem.main(base + ["--device", "cpu", "--mgl", "1",
                                          "--smoother", "gs"])
     assert np.isfinite(result.history).all()
+    result = train_voxelfem.main(base[:5] + ["4"] + base[6:] + [
+        "--device", "cpu", "--mgl", "1", "--precond-lag", "2", "--scan", "4"])
+    assert len(result.history) == 4 and np.isfinite(result.history).all()
+    assert result.solver_stats["hierarchy_builds"] == 2

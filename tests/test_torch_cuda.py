@@ -78,7 +78,8 @@ def test_fine_kernels_match_twins(device, prob_path, dims):
         assert _rel(f64, ref64) < 1e-12
     assert kernels.launches == {"apply_k_fine_f32": 1, "apply_k_fine_elem_f32": 1,
                                 "apply_k_cached_f32": 0, "cached_stencil": 0,
-                                "apply_k_fine_f64": 1, "apply_k_fine_elem_f64": 1}
+                                "apply_k_fine_f64": 1, "apply_k_fine_elem_f64": 1,
+                                "apply_k_cached_bf16": 0, "cached_stencil_bf16": 0}
 
 
 @pytest.mark.parametrize("prob_path,dims", CASES)
@@ -114,6 +115,123 @@ def test_cached_kernel_matches_twin(device, prob_path, dims):
         assert _rel(f, kernels.apply_k_cached_f32_plain(u, stencil, g)) < 1e-5
     assert kernels.launches["cached_stencil"] == len(stacks)
     assert kernels.launches["apply_k_cached_f32"] == len(stacks)
+
+
+@pytest.mark.parametrize("prob_path,dims", CASES)
+def test_bf16_cached_kernels_match_twins(device, prob_path, dims):
+    """The bf16 stencil assembly (fp32 sums in the twin's order, each slot
+    rounded once to nearest even: bitwise equal to the twin) and the bf16
+    apply (slots widened to fp32: the summation order differs)."""
+    prob, grid = problem_from_config(load_problem(prob_path), dims=dims,
+                                     dtype=torch.float32, device=device)
+    rng = np.random.default_rng(12)
+    d = grid.nodes_per_elem * grid.ndim
+    stacks = [(grid, torch.tensor(rng.standard_normal(grid.dims + (d, d)),
+                                  dtype=torch.float32, device=device))]
+    if mg.max_feasible_coarsenings(grid):
+        cfg = mg.build_mg_config(prob, 1)
+        young = prob.young(torch.tensor(rng.uniform(0.1, 1.0, grid.dims),
+                                        dtype=torch.float32, device=device))
+        stacks.append((cfg.levels[1].grid, mg.build_level_ke(cfg, young, 1)))
+    kernels.reset_launches()
+    for g, Ke in stacks:
+        S = kernels.cached_stencil_bf16(Ke, g)
+        u = torch.tensor(rng.standard_normal(g.nodes_per_dim + (g.ndim,)),
+                         dtype=torch.float32, device=device)
+        f = kernels.apply_k_cached_bf16(u, S, g)
+        torch.cuda.synchronize()
+        assert S.dtype == torch.bfloat16
+        torch.testing.assert_close(S, kernels.cached_stencil_bf16_plain(Ke, g),
+                                   rtol=0, atol=0)
+        assert _rel(f, kernels.apply_k_cached_bf16_plain(u, S, g)) < 1e-5
+    assert kernels.launches["cached_stencil_bf16"] == len(stacks)
+    assert kernels.launches["apply_k_cached_bf16"] == len(stacks)
+    assert kernels.launches["cached_stencil"] == kernels.launches["apply_k_cached_f32"] == 0
+
+
+def _graph_case(device, smoother, coarse_solver="auto"):
+    prob, grid = problem_from_config(load_problem(CASES[3][0]), dims=CASES[3][1],
+                                     dtype=torch.float32, device=device)
+    settings = mg.MGSolverSettings(num_levels=2, smoother=smoother, cheb_degree=1,
+                                   use_kernels=True, coarse_solver=coarse_solver)
+    solve = mg.make_mg_solver(prob, settings)
+    rng = np.random.default_rng(13)
+    rho0, rho1 = (torch.tensor(rng.uniform(0.05, 1.0, grid.dims), dtype=torch.float32,
+                               device=device) for _ in range(2))
+    r = torch.tensor(rng.standard_normal(grid.nodes_per_dim + (3,)), dtype=torch.float32,
+                     device=device)
+    return prob, settings, solve, rho0, rho1, mg._zero_dirichlet(
+        mg.build_level_states(solve.cfg, prob, prob.young(rho0))[0], r)
+
+
+@pytest.mark.parametrize("smoother,coarse_solver", [
+    ("chebyshev", "ns"), ("chebyshev", "cholesky"), ("gs", "ns"), ("gs", "cholesky")])
+def test_precond_graph_replay_matches_eager(device, smoother, coarse_solver):
+    """The preconditioner replayed from its CUDA graph equals its eager call
+    (within 1e-6 of max|z|), before and after a rebuild that writes into the
+    captured tensors (against an eager call on a fresh build); one capture
+    serves both, and the launch counts are the replays'."""
+    prob, settings, solve, rho0, rho1, r = _graph_case(device, smoother, coarse_solver)
+    state = solve.build_precond(rho0, use_graph=True)
+    assert state.coarse[0] == {"ns": "ns", "cholesky": "chol"}[coarse_solver]
+    eager = mg._make_preconditioner(settings, state.levels, state.coarse)
+    graphed = mg._make_preconditioner(settings, state.levels, state.coarse, state)
+    z_ref = eager(r)
+    mg.reset_stats()
+    z = graphed(r)
+    kernels.reset_launches()
+    z2 = graphed(r)
+    per_replay = dict(kernels.launches)
+    torch.cuda.synchronize()
+    assert mg.stats["graph_captures"] == 1 and mg.stats["graph_replays"] == 2
+    assert per_replay["apply_k_fine_f32"] > 0 and per_replay["apply_k_cached_f32"] > 0
+    for out in (z, z2):
+        assert float((out - z_ref).abs().max()) <= 1e-6 * float(z_ref.abs().max())
+    assert z.data_ptr() != z2.data_ptr()   # each call returns its own copy
+    assert solve.build_precond(rho1, into=state) is state
+    z_new = graphed(r)
+    fresh = solve.build_precond(rho1)
+    z_fresh = mg._make_preconditioner(settings, fresh.levels, fresh.coarse)(r)
+    torch.cuda.synchronize()
+    assert mg.stats["graph_captures"] == 1
+    assert float((z_new - z_fresh).abs().max()) <= 1e-6 * float(z_fresh.abs().max())
+    assert float((z_new - z_ref).abs().max()) > 1e-3 * float(z_ref.abs().max())
+
+
+def test_precond_graph_capture_refuses_unuploaded_k0(device):
+    """A capture whose fine kernels would need K0's blocks uploaded raises
+    (the upload is host work a replay would not repeat); it does not fall
+    back to the eager preconditioner."""
+    prob, settings, solve, rho0, _, r = _graph_case(device, "chebyshev")
+    state = solve.build_precond(rho0)
+    fn = mg._make_preconditioner(settings, state.levels, state.coarse)
+    kernels._fine_k0.clear()
+    lv0 = dataclasses.replace(state.levels[0], fine_apply=None)  # skips its own upload
+    with pytest.raises(RuntimeError, match="before CUDA-graph capture"):
+        mg.PrecondGraph(fn, r, lv0, warmup=False)
+    # with the upload done first the same capture succeeds
+    graph = mg.PrecondGraph(fn, r, state.levels[0], warmup=False)
+    assert float((graph(r) - fn(r)).abs().max()) <= 1e-6 * float(fn(r).abs().max())
+
+
+@pytest.mark.parametrize("smoother", ["chebyshev", "gs"])
+def test_classic_scan_on_card_matches_host_loop(device, smoother):
+    """ground_truth_topopt with --precond-lag 2 --scan 4 on the card (the
+    chunk replays its preconditioner from one graph) against the host loop
+    with the same lag, from the design of 6 fresh steps (from the uniform
+    start the first lagged solve can stall at the CG cap, which amplifies
+    rounding): the same builds, histories within 1e-5."""
+    cfg = load_problem(CASES[3][0])
+    kw = dict(dims=CASES[3][1], multigrid_levels=2, smoother=smoother,
+              device=device, log=lambda s: None)
+    init = ground_truth_topopt(cfg, max_iter=6, **kw).densities
+    kw.update(max_iter=4, precond_lag=2, init=init)
+    host = ground_truth_topopt(cfg, **kw)
+    chunked = ground_truth_topopt(cfg, scan_chunk=4, **kw)
+    assert chunked.solver_stats["graph_captures"] == 1
+    assert chunked.solver_stats["graph_replays"] > 0
+    assert chunked.solver_stats["hierarchy_builds"] == host.solver_stats["hierarchy_builds"]
+    np.testing.assert_allclose(chunked.history, host.history, rtol=1e-5)
 
 
 def _check_partials_only_on_block_faces(device, prob_path, dims, dtype):
@@ -292,6 +410,12 @@ def test_profile_oc_small(device, capsys):
                      "--kernels", "on", "--smoother", "gs"])
     out = capsys.readouterr().out
     assert out.count("[on] GS sweep level") == 2   # the two smoothed levels
+    profile_oc.main(["--grid", "[16,8,8]", "--mgl", "2", "--kernels", "on",
+                     "--precond-lag", "2", "--scan", "2",
+                     "--settings", '{"cached_ke_dtype": "bfloat16"}'])
+    out = capsys.readouterr().out
+    assert "[on] traced chunk (2 steps, per step) wall" in out
+    assert "graph captures 1" in out
 
 
 def test_profile_neural_small(device, capsys):

@@ -97,12 +97,14 @@ def test_trainer_matches_jax(vcs, af):
 
 def test_trainer_refuses_what_is_not_ported():
     tcfg = t_load_problem(MBB)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-        tneural.train(tcfg, tneural.NeuralTOConfig(**TINY), dims=DIMS, max_iter=1,
-                      scan_chunk=4, device="cpu", log=lambda s: None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-        tneural.build_trainer(tcfg, tneural.NeuralTOConfig(**TINY, precond_lag=3),
-                              dims=DIMS, device="cpu")
+    # the chunked loop and the lagged preconditioner are ported: a chunk of
+    # 3 steps (4 rounded down to the lag), then 2 in the host loop; builds
+    # at steps 0 and 3
+    _, hist, aux = tneural.train(tcfg, tneural.NeuralTOConfig(**TINY, precond_lag=3),
+                                 dims=DIMS, max_iter=5, scan_chunk=4, device="cpu",
+                                 log=lambda s: None)
+    assert len(hist) == 5 and np.isfinite(hist).all()
+    assert aux["solver_stats"]["hierarchy_builds"] == 2
     # the GS smoother is ported: a GS trainer takes its step
     _, step, _ = tneural.build_trainer(
         tcfg, tneural.NeuralTOConfig(**TINY, smoother="gs"), dims=DIMS, device="cpu")

@@ -172,9 +172,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_xdg.main(base)          # --device defaults to cuda
-    for extra in (["--scan", "4"], ["--precond-lag", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            train_xdg.main(base + ["--device", "cpu"] + extra)
+    # the chunked loop and the lagged preconditioner are ported
+    for extra in (["--scan", "2"], ["--precond-lag", "2"]):
+        result = train_xdg.main(base[:5] + ["2"] + base[6:] + ["--device", "cpu"] + extra)
+        assert len(result.history) == 2 and np.isfinite(result.history).all()
     # the GS smoother is ported
     result = train_xdg.main(base + ["--device", "cpu", "--mgl", "1", "--smoother", "gs"])
     assert np.isfinite(result.final_compliance)
