@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``ndr_tpu_torch/csrc/`` (one
-for each Pallas kernel, and the cached levels' stencil assembly), holds
+for each Pallas kernel, the cached levels' stencil assembly, and the
+bf16 and float64 instances of the cached pair), holds
 each against its plain PyTorch twin on the card (at the test shapes and
 at the shapes the paths below give it; the stencil assembly bitwise) and
 times each where the paths launch it, at 192x96x96 and at the bench grid
@@ -42,7 +43,22 @@ each with the launch counters set to 0 just before and read just after:
      --scan 8``, held to path 3's run;
  10. the solver settings ``cached_ke_dtype="bfloat16"`` (the bf16 stencil
      kernels) and ``lmax_power_iters=8`` through ``make_mg_solver`` at
-     192x96x96 mgl=3, each held to the fp32 bound-only solve.
+     192x96x96 mgl=3, each held to the fp32 bound-only solve;
+ 11. classic SIMP-OC in float64 (``--x64``), cantilever 192x96x96, mgl=3,
+     kernels on (the float64 fine kernel and float64 stencils) and off, held
+     to each other at step 0 (1e-10) and to path 1's fp32-refined run;
+ 12. the reference's 2-D MBB 300x100 log in float64: ``--x64 --smoother gs``
+     mgl=2 with the kernels, 9 OC steps held to its objectives
+     (``REFERENCE_TRACE``, rtol 2e-4); path 7's warm-up is held to the
+     reference's cantilever 256x128x128 log (``C1001_HEAD``, rtol 3e-3);
+ 13. neural TO in float64, the bench configuration of path 3 with ``--x64``
+     (the float64 element kernel as the CG operator);
+ 14. ``--optim LBFGS`` (augmented-Lagrangian projected L-BFGS), cantilever
+     192x96x96, mgl=3, 20 inner iterations: finite, decreasing, feasible;
+ 15. a degree-2 grid (cantilever 32x16x16, orderFEM [2, 2, 2]), whose
+     block-Jacobi PCG takes the plain applies (every kernel counter 0), and
+     the Langelaar filter at 192x96x96 in float64 on the card against the
+     same call on the CPU.
 
 Any failed check exits non-zero. The last line of standard output is one
 JSON object naming the device; the line before it, the card's name and
@@ -75,6 +91,7 @@ MGL = 3
 ITERS = 5
 CG_CAP = 100
 PROB = "problems/3d/cantilever_flexion.json"
+MBB = "problems/2d/mbb_beam.json"
 BRIDGE = "problems/3d/bridge.json"
 BENCH_GRID = (64, 32, 16)
 NEURAL_STEPS = 4
@@ -90,6 +107,8 @@ TEST_SHAPES = [("problems/2d/mbb_beam.json", (12, 6)),
                (BRIDGE, (37, 19, 23)),
                (BRIDGE, (9, 5, 1)),
                (BRIDGE, BENCH_GRID)]
+# the 2-D MBB grid of the reference's float64 log (phase 15, mgl=2)
+MBB_GRID = (300, 100)
 TOL_F32 = 1e-5      # max|f - f_twin| / max|f_twin|: summation order differs
 TOL_F64 = 1e-12
 TOL_ON_OFF = 1e-4   # the solver's tolerance; both runs are f64-refined to it
@@ -115,6 +134,34 @@ TOL_LAG = 1e-4       # lagged against fresh histories (tests/test_training.py:17
 TOL_GRAPH = 1e-5     # (c) against (b): the same steps, replayed
 TOL_NEURAL_LAG = 2e-3  # tests/test_training.py:56-60
 GS_LAG_STEPS = 4
+# 2 x the objective after OC steps 1-8 of the reference's 2-D MBB 300x100
+# float64 log, and the first 5 OC objectives of its cantilever 256x128x128
+# log, as tests/test_golden.py transcribes them (REFERENCE_TRACE,
+# C1001_HEAD; copied: that test imports JAX), with its tolerances
+REFERENCE_TRACE = [2661.300, 1701.628, 1298.092, 1080.876,
+                   933.508, 842.956, 746.392, 647.912]
+TOL_REFERENCE = 2e-4
+C1001_HEAD = [1864.918446, 730.583631, 394.019948, 302.953550, 289.046282]
+TOL_C1001 = 3e-3
+X64_ITERS_ON, X64_ITERS_OFF = 3, 2
+TOL_X64_ON_OFF = 1e-10  # float64 end to end: both runs solve to 1e-4, rounding apart
+X64_NEURAL_STEPS = 3
+LBFGS_ITERS = 20
+TOL_VOLUME = 1e-4
+# the same L-BFGS run in float64 on the card: its first inner iterations
+# against the fp32-refined run's (both solve to the 1e-4 residual test;
+# the curvature pairs carry the solves' difference from step to step)
+LBFGS_X64_ITERS = 4
+TOL_LBFGS_X64 = 1e-3
+# L-BFGS in float64 on the card and on the CPU, at a grid the CPU solves
+# in seconds: every history value and the final design (kernels against
+# their plain twins, ~1e-15 per apply; the CPU parity test's tolerance)
+LBFGS_SMALL_GRID, LBFGS_SMALL_MGL, LBFGS_SMALL_ITERS = (32, 16, 16), 2, 10
+TOL_LBFGS_CPU = 1e-8
+DEGREE2_GRID = (32, 16, 16)
+DEGREE2_ITERS = 3
+DEGREE2_CG_CAP = 2000   # ground_truth_topopt's cap for block-Jacobi PCG
+TOL_LANGELAAR = 1e-12
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -143,6 +190,11 @@ CACHED = {  # wrapper -> (source, replaced TPU kernel or its operand layout)
                             "ndr_tpu/fem/pallas_kernels.py:1096"),
     "cached_stencil_bf16": ("ndr_tpu_torch/csrc/cached_stencil.cu",
                             "ndr_tpu/fem/pallas_kernels.py:1075"),
+    # its function in float64, for the cached levels of a float64 hierarchy
+    "apply_k_cached_f64": ("ndr_tpu_torch/csrc/cached_stencil.cu",
+                           "ndr_tpu/fem/pallas_kernels.py:1096"),
+    "cached_stencil_f64": ("ndr_tpu_torch/csrc/cached_stencil.cu",
+                           "ndr_tpu/fem/pallas_kernels.py:1075"),
 }
 SLEEP_CYCLES = 200_000_000   # ~0.1 s of device time: the host queues all timed reps in it
 
@@ -162,12 +214,14 @@ def port_modules() -> types.SimpleNamespace:
     from ndr_tpu_torch.eval import eval_fourfeat, eval_voxelfem
     from ndr_tpu_torch.fem import kernels, multigrid, simulator
     from ndr_tpu_torch.io import problem
+    from ndr_tpu_torch.ops import filters
     from ndr_tpu_torch.training import train_voxelfem, train_xdg
-    from ndr_tpu_torch.utils import torch_setup
+    from ndr_tpu_torch.utils import profile_oc, torch_setup
     return types.SimpleNamespace(kernels=kernels, mg=multigrid, simulator=simulator,
                                  problem=problem, train_voxelfem=train_voxelfem,
                                  train_xdg=train_xdg, torch_setup=torch_setup,
-                                 eval_fourfeat=eval_fourfeat, eval_voxelfem=eval_voxelfem)
+                                 eval_fourfeat=eval_fourfeat, eval_voxelfem=eval_voxelfem,
+                                 filters=filters, profile_oc=profile_oc)
 
 
 def gpu_line() -> str:
@@ -363,8 +417,10 @@ def phase_kernels(m):
         print(line, flush=True)
         return out
 
-    def cached(ke, g, label, timed):
-        """Assembly and apply of one cached level's stencil."""
+    def cached(ke, g, label, timed, ke64):
+        """Assembly and apply of one cached level's stencil: from the fp32
+        stack ``ke`` (fp32 and bf16 storage) and from the float64 stack
+        ``ke64`` (the float64 instances)."""
         N = g.ndim
         d = g.nodes_per_elem * N
         nn, ne = g.num_nodes, g.num_elements
@@ -397,9 +453,25 @@ def phase_kernels(m):
             if timed else None,
             library=(lambda: (stencil_csr(kernels, g, S16.float()), ul.reshape(-1)))
             if timed else None)
+        del S, S16
+        # float64: 8 B per Ke, stencil, u and f entry; the library SpMV is
+        # cuSPARSE's float64 CSR
+        S64 = run("cached_stencil_f64", kernels.cached_stencil_f64,
+                  kernels.cached_stencil_f64_plain, (ke64,), g, 0, label,
+                  cost=(8 * d * d * ne + 8 * slots * nn, d * d * ne, torch.float64)
+                  if timed else None)
+        u64 = ul.double()
+        run("apply_k_cached_f64", kernels.apply_k_cached_f64,
+            kernels.apply_k_cached_f64_plain, (u64, S64), g, TOL_F64, label,
+            cost=(8 * slots * nn + 16 * N * nn, 2 * slots * nn, torch.float64)
+            if timed else None,
+            library=(lambda: (stencil_csr(kernels, g, S64), u64.reshape(-1)))
+            if timed else None)
 
+    # the hierarchies the paths build: every level but the coarsest (factored)
+    path_levels = {GRID: MGL, BENCH_GRID: 2, MBB_GRID: 2}
     rng = np.random.default_rng(0)
-    for prob_path, dims in TEST_SHAPES + [(PROB, GRID)]:
+    for prob_path, dims in TEST_SHAPES + [(MBB, MBB_GRID), (PROB, GRID)]:
         timed = dims in (GRID, BENCH_GRID)
         prob, grid = m.simulator.problem_from_config(
             m.problem.load_problem(prob_path), dims=dims, device=dev)
@@ -451,22 +523,23 @@ def phase_kernels(m):
         if not timed:  # a random stack on the grid itself (any shape, coarsenable or not)
             ke = torch.tensor(rng.standard_normal(grid.dims + (d, d)),
                               dtype=torch.float32, device=dev)
-            cached(ke, grid, f"random Ke {dims}", False)
+            cached(ke, grid, f"random Ke {dims}", False, ke.double())
 
         # the Galerkin levels of this grid's hierarchy, built as the solver
-        # builds them (level 1 direct, deeper levels recursive); the paths
-        # run 192x96x96 with mgl=3 and 64x32x16 with mgl=2
-        nl = {GRID: MGL, BENCH_GRID: 2}.get(dims, min(1, m.mg.max_feasible_coarsenings(grid)))
+        # builds them (level 1 direct, deeper levels recursive)
+        nl = path_levels.get(dims, min(1, m.mg.max_feasible_coarsenings(grid)))
         cfg = m.mg.build_mg_config(prob, nl)
         ke = m.mg.build_level_ke(cfg, young.float(), 1) if nl else None
+        ke64 = m.mg.build_level_ke(cfg, young, 1) if nl else None  # a float64 hierarchy's
         for l in range(1, nl + 1):
             if l > 1:
                 ke = m.mg.coarsen_ke(ke, N)
-            if l == nl and timed:
+                ke64 = m.mg.coarsen_ke(ke64, N)
+            if l == nl and dims in path_levels:
                 break  # the coarsest level is factored, not applied
             g = cfg.levels[l].grid
-            cached(ke.contiguous(), g, f"level {l} {g.dims}", timed)
-        del ke
+            cached(ke.contiguous(), g, f"level {l} {g.dims}", timed, ke64.contiguous())
+        del ke, ke64
         torch.cuda.empty_cache()
     return worst, records
 
@@ -514,10 +587,11 @@ def run_path(m, label: str, fn, expect: tuple):
 
 
 def classic(m, kernels_mode: str, smoother: str = "chebyshev", iters: int = ITERS,
-            grid=GRID, mgl: int = MGL, extra=(), jid=None):
+            grid=GRID, mgl: int = MGL, extra=(), jid=None, prob: str = PROB,
+            cg_cap: int = CG_CAP):
     jid = jid or (f"classic_{kernels_mode}" if smoother == "chebyshev" else
                   f"classic_{smoother}_{kernels_mode}")
-    argv = ["--prob", PROB, "--grid", json.dumps(list(grid)), "--mgl", str(mgl),
+    argv = ["--prob", prob, "--grid", json.dumps(list(grid)), "--mgl", str(mgl),
             "--iter", str(iters), "--device", "cuda", "--kernels", kernels_mode,
             "--smoother", smoother, "--out", OUT_DIR, "--jid", jid, *extra]
     with captured_stderr() as buf:
@@ -528,7 +602,7 @@ def classic(m, kernels_mode: str, smoother: str = "chebyshev", iters: int = ITER
           f"{jid}: step lines {steps}")
     for i, c, n in steps:
         check(math.isfinite(c) and c > 0, f"classic step {i}: compliance {c}")
-        check(n < CG_CAP, f"classic step {i}: cg_iters {n} hit the cap {CG_CAP}")
+        check(n < cg_cap, f"classic step {i}: cg_iters {n} hit the cap {cg_cap}")
     check('Compliance loss of binary densities for "' in text
           and "Final step, Compliance loss" in text,
           f"{jid}: final reference-format lines missing")
@@ -539,9 +613,11 @@ def classic(m, kernels_mode: str, smoother: str = "chebyshev", iters: int = ITER
         path = os.path.join(OUT_DIR, f"{jid}{f}")
         check(os.path.exists(path), f"artifact {path} missing")
     s_per_iter = statistics.median(result.step_seconds[1:])
+    applies = re.search(r"Stiffness applies: (.*)", text)
     print(f"{jid}: compliance by step {[c for _, c, _ in steps]}, cg_iters "
           f"{[n for *_, n in steps]}, s/OC-iter (median of steps 1-{iters - 1}) "
-          f"{s_per_iter:.4f}, solver {result.solver_stats}")
+          f"{s_per_iter:.4f}, solver {result.solver_stats}; stiffness applies: "
+          f"{applies.group(1) if applies else '?'}")
     return steps, s_per_iter, result
 
 
@@ -637,6 +713,140 @@ def solver_settings(m):
                    f"solve {wall:.4f} s, compliance rel to fp32 {rel:.3e}")
         print(out[-1])
     return out
+
+
+def lbfgs_run(m, jid: str, iters: int, grid=GRID, mgl: int = MGL, device: str = "cuda",
+              extra=()):
+    """One ``train_voxelfem --optim LBFGS`` run on the cantilever: every
+    compliance finite, one history value per inner iteration and the
+    restored design's, that design feasible (filtered volume at most v0 +
+    1e-4; the restoration moves only an infeasible design down onto v0).
+    Returns (result, filtered volume, v0)."""
+    argv = ["--prob", PROB, "--grid", json.dumps(list(grid)), "--mgl", str(mgl),
+            "--iter", str(iters), "--optim", "LBFGS", "--device", device,
+            "--log-every", "1", "--out", OUT_DIR, "--jid", jid, *extra]
+    with captured_stderr():
+        result = m.train_voxelfem.main(argv)
+    hist = result.history
+    n = len(result.step_seconds)
+    check(n == iters and len(hist) == n + 1, f"{jid}: {n} iterations, "
+                                             f"{len(hist)} history values")
+    check(all(math.isfinite(c) and c > 0 for c in hist), f"{jid}: history {hist}")
+    v0 = m.problem.load_problem(PROB).max_volume
+    vol = float(result.physical.mean())
+    check(vol <= v0 + TOL_VOLUME, f"{jid}: filtered volume {vol} > v0 {v0} + {TOL_VOLUME:g}")
+    print(f"{jid} {grid} mgl={mgl} on {device}: {result.evaluations} objective evaluations, "
+          f"history {hist}")
+    return result, vol, v0
+
+
+def lbfgs_path(m):
+    """Classic SIMP with ``--optim LBFGS`` at 192x96x96 (fp32-refined
+    solves), 20 inner iterations, twice: the restored design's compliance
+    below step 0's, and the second run the same bits as the first (the
+    port's gradient and coarsest assembly add in a fixed order). Then the
+    same run in float64 for its first iterations, held to the fp32-refined
+    history; then float64 on the card against the CPU at 32x16x16.
+    Returns the summary line."""
+    import numpy as np
+
+    result, vol, v0 = lbfgs_run(m, "lbfgs", LBFGS_ITERS)
+    hist = result.history
+    check(hist[-1] < hist[0], f"lbfgs: final {hist[-1]} not below step 0's {hist[0]}")
+    again, _, _ = lbfgs_run(m, "lbfgs_again", LBFGS_ITERS)
+    check(again.history == hist and again.evaluations == result.evaluations
+          and np.array_equal(again.densities, result.densities),
+          f"lbfgs: a second run from the same start differs: {again.evaluations} "
+          f"evaluations, history {again.history}")
+    print("lbfgs: the second run equals the first bitwise (history, evaluations, design)")
+
+    x64, _, _ = lbfgs_run(m, "lbfgs_x64", LBFGS_X64_ITERS, extra=("--x64",))
+    k = LBFGS_X64_ITERS
+    rel_x64 = max(abs(a - b) / abs(b) for a, b in zip(hist[:k], x64.history[:k]))
+    print(f"lbfgs fp32-refined against float64, inner iterations 0-{k - 1}: "
+          f"{hist[:k]} vs {x64.history[:k]}, worst rel {rel_x64:.3e}")
+    check(rel_x64 <= TOL_LBFGS_X64, f"lbfgs fp32-refined differs from float64: "
+                                    f"rel {rel_x64:.3e} > {TOL_LBFGS_X64:g}")
+
+    small = dict(grid=LBFGS_SMALL_GRID, mgl=LBFGS_SMALL_MGL, extra=("--x64",))
+    card, _, _ = lbfgs_run(m, "lbfgs_small_cuda", LBFGS_SMALL_ITERS, **small)
+    host, _, _ = lbfgs_run(m, "lbfgs_small_cpu", LBFGS_SMALL_ITERS, device="cpu", **small)
+    rel_h = max(abs(a - b) / abs(b) for a, b in zip(card.history, host.history))
+    err_x = float(np.abs(card.densities - host.densities).max())
+    print(f"lbfgs float64 {LBFGS_SMALL_GRID} card against CPU: evaluations "
+          f"{card.evaluations} / {host.evaluations}, history worst rel {rel_h:.3e}, "
+          f"final design max|d| {err_x:.3e}")
+    check(card.evaluations == host.evaluations and rel_h <= TOL_LBFGS_CPU
+          and err_x <= TOL_LBFGS_CPU,
+          f"lbfgs float64 card differs from the CPU: evaluations {card.evaluations} / "
+          f"{host.evaluations}, history rel {rel_h:.3e}, design {err_x:.3e} "
+          f"(tolerance {TOL_LBFGS_CPU:g})")
+
+    s_it = statistics.median(result.step_seconds)
+    line = (f"lbfgs {GRID} mgl={MGL}: {len(result.step_seconds)} inner iterations, "
+            f"{result.evaluations} objective evaluations, s per inner iteration "
+            f"{s_it:.4f} (median), compliance {hist[0]:.6f} -> {hist[-1]:.6f}, filtered "
+            f"volume {vol:.6f} (v0 {v0}, v0 - vol {v0 - vol:.3e}); reproduced bitwise; "
+            f"float64 iterations 0-{k - 1} within {rel_x64:.3e}; float64 "
+            f"{LBFGS_SMALL_GRID} card vs CPU history {rel_h:.3e}, design {err_x:.3e}")
+    print(line)
+    return line, result
+
+
+def degree2_problem() -> str:
+    """The cantilever's problem JSON with orderFEM [2, 2, 2], written under
+    the output directory (asset paths absolute)."""
+    with open(os.path.join(ROOT, PROB)) as f:
+        cfg = json.load(f)
+    cfg["orderFEM"] = [2, 2, 2]
+    for key in ("MATERIAL_PATH", "BC_PATH"):
+        cfg[key] = os.path.join(ROOT, cfg[key])
+    path = os.path.join(OUT_DIR, "cantilever_degree2.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def langelaar(m) -> str:
+    """The Langelaar overhang filter at 192x96x96 in float64, forward and
+    backward (autograd) on the card against the same call on the CPU, each
+    within 1e-12 (of max|grad| for the gradient); a traced call's device
+    busy time and ops. Returns the summary line."""
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+    x = rng.uniform(0.02, 1.0, GRID)
+    w = rng.standard_normal(GRID)
+    filt = m.filters.LangelaarFilter()
+
+    def fwd_bwd(dev):
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        y = filt.apply(xt)
+        g, = torch.autograd.grad(y, xt, torch.tensor(w, device=dev))
+        return y.detach(), g
+
+    fwd_bwd("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, g = fwd_bwd("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fwd_bwd("cuda")
+        torch.cuda.synchronize()
+    busy, n_ops, _, _ = m.profile_oc.device_summary(prof)
+    y_cpu, g_cpu = fwd_bwd("cpu")
+    err_y = float((y.cpu() - y_cpu).abs().max())
+    err_g = float((g.cpu() - g_cpu).abs().max() / g_cpu.abs().max())
+    check(err_y <= TOL_LANGELAAR and err_g <= TOL_LANGELAAR,
+          f"langelaar card vs CPU: forward {err_y:.3e}, gradient rel {err_g:.3e}")
+    line = (f"langelaar {GRID} float64 forward+backward: wall {wall:.4f} s over "
+            f"{GRID[-1]} layers; traced: {n_ops} device ops, busy {1e3 * busy:.2f} ms "
+            f"(host-bound: a loop over layers); card vs CPU forward {err_y:.3e}, "
+            f"gradient rel {err_g:.3e}")
+    print(line)
+    return line
 
 
 def agree(label: str, a: float, b: float):
@@ -758,11 +968,19 @@ def main():
         print(f"== 10. production classic: {PROB} {PROD_GRID} mgl={PROD_MGL}, "
               f"{PROD_STEPS} OC steps: (a) rebuild every step, (b) --precond-lag "
               f"{PROD_LAG}, (c) --precond-lag {PROD_LAG} --scan {PROD_SCAN}")
-        (_, _, _), counts, _ = run_path(
+        (warm, _, _), counts, _ = run_path(
             m, "production warm-up", lambda: classic(
                 m, "on", iters=WARM_STEPS, grid=PROD_GRID, mgl=PROD_MGL,
                 jid="production_warm"), ())
         total = {k: total[k] + counts[k] for k in total}
+        # the CLI's defaults are ground_truth_topopt's (tol 1e-4, Chebyshev,
+        # filters, OC move), the configuration of tests/test_golden.py's check
+        head = [c for _, c, _ in warm][:len(C1001_HEAD)]
+        rel_c1001 = max(abs(a - b) / abs(b) for a, b in zip(head, C1001_HEAD))
+        print(f"production warm-up steps 0-{len(head) - 1} {head} against the reference "
+              f"log's C1001_HEAD {C1001_HEAD}: worst rel {rel_c1001:.3e}")
+        check(rel_c1001 < TOL_C1001, f"production warm-up differs from the reference log: "
+                                     f"rel {rel_c1001:.3e} > {TOL_C1001:g}")
         init = ("--init", os.path.join(OUT_DIR, "production_warm_densities.npy"))
         prod = {}
         for run, extra in (("a", init), ("b", init + ("--precond-lag", str(PROD_LAG))),
@@ -868,10 +1086,85 @@ def main():
                                            ("apply_k_cached_bf16", "cached_stencil_bf16"))
         total = {k: total[k] + counts[k] for k in total}
         timings.extend(lines13)
+
+        f64_kernels = ("apply_k_fine_f64", "apply_k_cached_f64", "cached_stencil_f64")
+        print(f"== 14. classic float64: {PROB} {GRID} mgl={MGL} --x64, {X64_ITERS_ON} OC "
+              f"steps kernels on, {X64_ITERS_OFF} off")
+        (x64_on, t_x64_on, _), counts, peak = run_path(
+            m, "classic x64 on", lambda: classic(m, "on", iters=X64_ITERS_ON, extra=("--x64",),
+                                                 jid="classic_x64_on"), f64_kernels)
+        total = {k: total[k] + counts[k] for k in total}
+        check(counts["apply_k_fine_f32"] == counts["apply_k_cached_f32"] == 0,
+              f"classic x64 launched fp32 kernels: {counts}")
+        (x64_off, t_x64_off, _), _, peak_off = run_path(
+            m, "classic x64 off", lambda: classic(m, "off", iters=X64_ITERS_OFF,
+                                                  extra=("--x64",), jid="classic_x64_off"), ())
+        rel = abs(x64_on[0][1] - x64_off[0][1]) / abs(x64_off[0][1])
+        print(f"classic float64 step-0 compliance on/off: {x64_on[0][1]} vs "
+              f"{x64_off[0][1]}, rel {rel:.3e}")
+        check(rel <= TOL_X64_ON_OFF, f"classic float64 on/off step 0: rel {rel:.3e}")
+        agree("classic float64 step 0 against phase 4's fp32-refined run",
+              x64_on[0][1], steps_on[0][1])
+        timings.append(f"classic float64 {GRID} mgl={MGL}: s/OC-iter on {t_x64_on:.4f}, "
+                       f"cg_iters {[n for *_, n in x64_on]} (peak {peak:.2f} GiB); off "
+                       f"{t_x64_off:.4f}, cg_iters {[n for *_, n in x64_off]} "
+                       f"(peak {peak_off:.2f} GiB)")
+
+        mbb_grid = MBB_GRID
+        print(f"== 15. the reference's 2-D log in float64: {MBB} {mbb_grid} mgl=2 --smoother "
+              f"gs --x64, {len(REFERENCE_TRACE) + 1} OC steps")
+        (mbb, t_mbb, _), counts, peak = run_path(
+            m, "mbb x64 gs", lambda: classic(
+                m, "on", "gs", iters=len(REFERENCE_TRACE) + 1, grid=mbb_grid, mgl=2,
+                extra=("--x64",), jid="mbb_x64_gs", prob=MBB), f64_kernels)
+        total = {k: total[k] + counts[k] for k in total}
+        # the compliance before step k is the log's step-k objective
+        ours = [c for _, c, _ in mbb][1:len(REFERENCE_TRACE) + 1]
+        rel_ref = max(abs(a - b) / abs(b) for a, b in zip(ours, REFERENCE_TRACE))
+        print(f"mbb float64 GS steps 1-{len(ours)} {ours} against REFERENCE_TRACE: "
+              f"worst rel {rel_ref:.3e}")
+        check(rel_ref < TOL_REFERENCE, f"mbb float64 trace differs from the reference log: "
+                                       f"rel {rel_ref:.3e} > {TOL_REFERENCE:g}")
+        timings.append(f"classic gs float64 {MBB} {mbb_grid} mgl=2: s/OC-iter {t_mbb:.4f}, "
+                       f"worst rel to the reference log {rel_ref:.3e} (peak {peak:.2f} GiB)")
+
+        print(f"== 16. neural float64: the bench configuration of phase 6 with --x64, "
+              f"{X64_NEURAL_STEPS} steps")
+        (lines_x64, s_x64, _), counts, peak = run_path(
+            m, "bench x64",
+            lambda: neural(m, "bench_x64", BENCH_GRID, 2, "maxed_barrier", X64_NEURAL_STEPS,
+                           ["--fine-kernel", "flat", "--x64"]),
+            ("apply_k_fine_elem_f64", "apply_k_cached_f64", "cached_stencil_f64"))
+        total = {k: total[k] + counts[k] for k in total}
+        agree("bench float64 step 0 against phase 6's", lines_x64[0][1], lines_on[0][1])
+        timings.append(f"neural float64 {BENCH_GRID} mgl=2 fine-kernel flat: s/step "
+                       f"{s_x64:.4f} (phase 6 fp32 {s_on:.4f}), peak {peak:.2f} GiB")
+
+        print(f"== 17. L-BFGS: {PROB} {GRID} mgl={MGL} --optim LBFGS --iter {LBFGS_ITERS}, "
+              f"twice; --x64 --iter {LBFGS_X64_ITERS}; --x64 at {LBFGS_SMALL_GRID} on the "
+              f"card and on the CPU")
+        (line, _), counts, peak = run_path(m, "lbfgs", lambda: lbfgs_path(m),
+                                           ("apply_k_fine_f32", "apply_k_cached_f32",
+                                            "cached_stencil", "apply_k_fine_f64"))
+        total = {k: total[k] + counts[k] for k in total}
+        timings.append(line + f", peak {peak:.2f} GiB")
+
+        print(f"== 18. degree 2 ({PROB} {DEGREE2_GRID}, orderFEM [2, 2, 2], "
+              f"{DEGREE2_ITERS} OC steps) and the Langelaar filter at {GRID} in float64")
+        (d2, t_d2, _), counts, peak = run_path(
+            m, "degree 2", lambda: classic(
+                m, "auto", iters=DEGREE2_ITERS, grid=DEGREE2_GRID, mgl=MGL,
+                jid="degree2", prob=degree2_problem(), cg_cap=DEGREE2_CG_CAP), ())
+        check(not any(counts.values()), f"degree 2 launched kernels: {counts}")
+        print("degree 2: kernel counters all 0: the CUDA kernels take degree-1 grids, "
+              "so --kernels auto takes the plain applies (the JAX package takes XLA there)")
+        timings.append(f"classic degree 2 {DEGREE2_GRID}: s/OC-iter {t_d2:.4f}, cg_iters "
+                       f"{[n for *_, n in d2]} (block-Jacobi PCG), peak {peak:.2f} GiB")
+        timings.append(langelaar(m))
     finally:
         shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    print("== 14. summary")
+    print("== 19. summary")
     print("launches over the paths:", total)
     for name, n in total.items():
         check(n > 0, f"{name} was launched by no path")
@@ -881,7 +1174,8 @@ def main():
     main = (f"fine {GRID}", "level 1 (96, 48, 48)")
     for name in ("apply_k_fine_f32", "apply_k_fine_elem_f32", "apply_k_cached_f32",
                  "cached_stencil", "apply_k_fine_f64", "apply_k_fine_elem_f64",
-                 "apply_k_cached_bf16", "cached_stencil_bf16"):
+                 "apply_k_cached_bf16", "cached_stencil_bf16", "apply_k_cached_f64",
+                 "cached_stencil_f64"):
         src, rep = CACHED[name] if name in CACHED else FINE[name][:2]
         # top level: 192x96x96 (cached kernels: its level 1); "shapes": every
         # timed shape, the bench grid's and level 2 included

@@ -66,23 +66,78 @@
 // Both stay bound by bytes, the stencil's half as many of them. The TPU
 // kernel rounds each element's Ke entry and sums the rounded entries; here
 // the assembled sum is rounded once, so no entry is less accurate.
+//
+// float64 (ndr_cached_stencil_f64, ndr_apply_k_cached_f64; the cached
+// levels of a float64 hierarchy, which the JAX package applies in XLA):
+// the same two kernels with a double compute type beside the storage type.
+// The assembly reads the float64 Ke stack as double2 (16 B, so a thread's
+// row set is 6 double2 in 3-D, 2 in 2-D) and sums each slot in double in
+// shared memory, in the order above, so it stays bitwise equal to its twin.
+// At 64 nodes a block's double slots would take 243 x 65 x 8 = 126,360 B
+// of shared memory in 3-D, one resident block per SM; a float64 block owns
+// 32 nodes (64,152 B) and keeps two phases in flight (6 double2 each):
+// the same 192 B of loads in flight per thread as the fp32 design, in the
+// same 96 registers of staging. The apply reads u, the stencil and f in
+// double and accumulates with fma. Both stay bound by bytes: at level 1 of
+// a 192x96x96 hierarchy (232,897 nodes) the stencil is 452.8 MB, the Ke
+// stack 1.02 GB; the FP64 rate is far from the limit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-// The stencil's storage types: fp32, or bf16 held as its 16 bits.
+// The stencil's storage types: fp32, bf16 held as its 16 bits, or double.
+// A slot is stored from, and loaded as, the compute type (float for the
+// first two, double for the last).
 __device__ __forceinline__ void store_slot(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_slot(unsigned short* p, float v) {
   *p = __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
+__device__ __forceinline__ void store_slot(double* p, double v) { *p = v; }
 __device__ __forceinline__ float load_slot(const float* p) { return __ldcs(p); }
 __device__ __forceinline__ float load_slot(const unsigned short* p) {
   return __uint_as_float(static_cast<unsigned int>(__ldcs(p)) << 16);
 }
+__device__ __forceinline__ double load_slot(const double* p) { return __ldcs(p); }
 
-constexpr int kAsmNodes = 64;   // nodes per assembly block
-constexpr int kAsmPhases = 4;   // phases whose row sets a thread loads together
+// a * b + c, rounded once
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+// The compute type C of the assembly: the Ke stack's type, read as 16-B
+// vectors of W values, and the assembly's block: kNodes nodes, their slots
+// in shared memory as C, kPhases phases' loads in flight.
+template <typename C>
+struct Compute;
+template <>
+struct Compute<float> {
+  using V = float4;
+  static constexpr int W = 4;
+  static constexpr int kNodes = 64;
+  static constexpr int kPhases = 4;
+  __device__ static V zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+};
+template <>
+struct Compute<double> {
+  using V = double2;
+  static constexpr int W = 2;
+  static constexpr int kNodes = 32;
+  static constexpr int kPhases = 2;
+  __device__ static V zero() { return make_double2(0.0, 0.0); }
+};
+
+// Value i (compile-time after unrolling) of a vector.
+__device__ __forceinline__ float lane(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ double lane(const double2& v, int i) {
+  return i == 0 ? v.x : v.y;
+}
+
 constexpr int kApplyNodes = 128;   // nodes per apply block (x N components)
 
 template <int NDIM>
@@ -92,11 +147,21 @@ struct Stencil {
   static constexpr int ROWS = NDIM * D;                 // one local node's Ke rows
   static constexpr int NOFF = NDIM == 3 ? 27 : 9;       // neighbour offsets
   static constexpr int SLOTS = NOFF * NDIM * NDIM;
-  static constexpr int E4 = D * D / 4;                  // float4 per element's Ke
-  static constexpr int V4 = ROWS / 4;                   // float4 per row set: 18 / 4
   static constexpr int TPN = NDIM == 3 ? 6 : 4;         // assembly threads per node
-  static constexpr int PER = V4 / TPN;                  // float4 per thread and phase
   static constexpr int CENTER = NOFF / 2;               // the offset (0, .., 0)
+};
+
+// The assembly's layout in vectors of the compute type C.
+template <int NDIM, typename C>
+struct Asm : Stencil<NDIM> {
+  using St = Stencil<NDIM>;
+  static constexpr int W = Compute<C>::W;
+  static constexpr int EV = St::D * St::D / W;          // vectors per element's Ke
+  static constexpr int VV = St::ROWS / W;               // vectors per row set
+  static constexpr int PER = VV / St::TPN;              // vectors per thread and phase
+  static constexpr int NODES = Compute<C>::kNodes;
+  static constexpr int THREADS = NODES * St::TPN;
+  static_assert(VV % St::TPN == 0, "a row set splits evenly over a node's threads");
 };
 
 // Offset bit of local node `a` along `axis` (C order: last axis lowest bit).
@@ -114,17 +179,19 @@ __host__ __device__ constexpr int bits3(int a) {
   return o;
 }
 
-template <int NDIM, typename T>
-__global__ void __launch_bounds__(kAsmNodes * Stencil<NDIM>::TPN)
-cached_stencil_kernel(const float4* __restrict__ ke, T* __restrict__ S,
+template <int NDIM, typename T, typename C>
+__global__ void __launch_bounds__(Asm<NDIM, C>::THREADS)
+cached_stencil_kernel(const typename Compute<C>::V* __restrict__ ke, T* __restrict__ S,
                       int ex, int ey, int ez, int nodes) {
-  using St = Stencil<NDIM>;
+  using St = Asm<NDIM, C>;
+  using V = typename Compute<C>::V;
   constexpr int N = NDIM;
-  constexpr int stride = kAsmNodes + 1;  // odd: fewer bank conflicts
-  extern __shared__ float acc[];         // SLOTS rows of `stride`
+  constexpr int stride = St::NODES + 1;  // odd: fewer bank conflicts
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* acc = reinterpret_cast<C*>(smem_raw);  // SLOTS rows of `stride`
   const int t = threadIdx.x;
   const int kk = t / St::TPN, r = t % St::TPN;
-  const int base = blockIdx.x * kAsmNodes;
+  const int base = blockIdx.x * St::NODES;
   const int n = base + kk;
   const int ny = ey + 1;
   const int nz = NDIM == 3 ? ez + 1 : 1;
@@ -143,39 +210,39 @@ cached_stencil_kernel(const float4* __restrict__ ke, T* __restrict__ S,
       valid |= 1u << a;
     }
   }
-  // float4 index of this thread's part of element (i, j, k)'s local node 0
+  // vector index of this thread's part of element (i, j, k)'s local node 0
   // rows (off the grid where n is on a far face; only valid phases' shifts
-  // are added to it), and the element strides in float4
-  const long long s0 = static_cast<long long>(NDIM == 3 ? ey * ez : ey) * St::E4;
-  const long long s1 = static_cast<long long>(NDIM == 3 ? ez : 1) * St::E4;
-  const long long s2 = St::E4;
+  // are added to it), and the element strides in vectors
+  const long long s0 = static_cast<long long>(NDIM == 3 ? ey * ez : ey) * St::EV;
+  const long long s1 = static_cast<long long>(NDIM == 3 ? ez : 1) * St::EV;
+  const long long s2 = St::EV;
   const long long at0 = (static_cast<long long>(i) * s0 + j * s1 + (NDIM == 3 ? k * s2 : 0)) + r;
   // accumulator index of each value this thread loads, at phase 0
-  int slot0[St::PER][4];
+  int slot0[St::PER][St::W];
 #pragma unroll
   for (int q = 0; q < St::PER; ++q) {
 #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int w = 4 * (r + q * St::TPN) + v;
+    for (int v = 0; v < St::W; ++v) {
+      const int w = St::W * (r + q * St::TPN) + v;
       const int c = w / St::D, b = (w % St::D) / N, d = w % N;
       slot0[q][v] = (((bits3<N>(b) + St::CENTER) * N + c) * N + d) * stride + kk;
     }
   }
-  auto load = [&](int a, float4 (&dst)[St::PER]) {
-    const long long at = at0 + a * St::V4 - local_bit<NDIM>(a, 0) * s0 -
+  auto load = [&](int a, V (&dst)[St::PER]) {
+    const long long at = at0 + a * St::VV - local_bit<NDIM>(a, 0) * s0 -
                          local_bit<NDIM>(a, 1) * s1 - local_bit<NDIM>(a, 2) * s2;
     const bool in = (valid >> a) & 1;
 #pragma unroll
     for (int q = 0; q < St::PER; ++q) {
-      dst[q] = in ? __ldg(ke + at + q * St::TPN) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      dst[q] = in ? __ldg(ke + at + q * St::TPN) : Compute<C>::zero();
     }
   };
 
-  constexpr int P = kAsmPhases;
-  float4 cur[P][St::PER], nxt[P][St::PER];
+  constexpr int P = Compute<C>::kPhases;
+  V cur[P][St::PER], nxt[P][St::PER];
 #pragma unroll
   for (int p = 0; p < P; ++p) load(p, cur[p]);
-  for (int q = t; q < St::SLOTS * stride; q += kAsmNodes * St::TPN) acc[q] = 0.0f;
+  for (int q = t; q < St::SLOTS * stride; q += St::THREADS) acc[q] = C(0);
   __syncthreads();
 #pragma unroll
   for (int a0 = 0; a0 < St::NPE; a0 += P) {
@@ -190,10 +257,8 @@ cached_stencil_kernel(const float4* __restrict__ ke, T* __restrict__ S,
         const int shift = bits3<N>(a) * N * N * stride;
 #pragma unroll
         for (int q = 0; q < St::PER; ++q) {
-          acc[slot0[q][0] - shift] += cur[p][q].x;
-          acc[slot0[q][1] - shift] += cur[p][q].y;
-          acc[slot0[q][2] - shift] += cur[p][q].z;
-          acc[slot0[q][3] - shift] += cur[p][q].w;
+#pragma unroll
+          for (int v = 0; v < St::W; ++v) acc[slot0[q][v] - shift] += lane(cur[p][q], v);
         }
       }
       __syncthreads();
@@ -205,35 +270,36 @@ cached_stencil_kernel(const float4* __restrict__ ke, T* __restrict__ S,
     }
   }
 
-  // node base + t % kAsmNodes, slots t / kAsmNodes, + TPN, ...
-  const int col = t % kAsmNodes;
+  // node base + t % NODES, slots t / NODES, + TPN, ...
+  const int col = t % St::NODES;
   if (base + col < nodes) {
-    for (int s = t / kAsmNodes; s < St::SLOTS; s += St::TPN) {
+    for (int s = t / St::NODES; s < St::SLOTS; s += St::TPN) {
       store_slot(S + static_cast<long long>(s) * nodes + base + col, acc[s * stride + col]);
     }
   }
 }
 
-template <int NDIM, typename T>
-int launch_stencil(const float* ke, T* S, int ex, int ey, int ez, cudaStream_t s) {
-  using St = Stencil<NDIM>;
-  constexpr size_t smem = sizeof(float) * St::SLOTS * (kAsmNodes + 1);  // 63 KB in 3-D
+template <int NDIM, typename T, typename C>
+int launch_stencil(const C* ke, T* S, int ex, int ey, int ez, cudaStream_t s) {
+  using St = Asm<NDIM, C>;
+  // 63 KB in 3-D for fp32 (64 nodes), 64,152 B for double (32 nodes)
+  constexpr size_t smem = sizeof(C) * St::SLOTS * (St::NODES + 1);
   // per launch: the attribute belongs to the current device
   const cudaError_t err = cudaFuncSetAttribute(
-      cached_stencil_kernel<NDIM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cached_stencil_kernel<NDIM, T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nodes = (ex + 1) * (ey + 1) * (NDIM == 3 ? ez + 1 : 1);
-  const unsigned int blocks = (nodes + kAsmNodes - 1) / kAsmNodes;
-  cached_stencil_kernel<NDIM, T><<<blocks, kAsmNodes * St::TPN, smem, s>>>(
-      reinterpret_cast<const float4*>(ke), S, ex, ey, ez, nodes);
+  const unsigned int blocks = (nodes + St::NODES - 1) / St::NODES;
+  cached_stencil_kernel<NDIM, T, C><<<blocks, St::THREADS, smem, s>>>(
+      reinterpret_cast<const typename Compute<C>::V*>(ke), S, ex, ey, ez, nodes);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NDIM, typename T>
+template <int NDIM, typename T, typename C>
 __global__ void __launch_bounds__(kApplyNodes * NDIM)
-cached_apply_kernel(const float* __restrict__ u, const T* __restrict__ S,
-                    float* __restrict__ f, int nx, int ny, int nz) {
+cached_apply_kernel(const C* __restrict__ u, const T* __restrict__ S,
+                    C* __restrict__ f, int nx, int ny, int nz) {
   using St = Stencil<NDIM>;
   const int nodes = nx * ny * nz;
   const int n = blockIdx.x * kApplyNodes + threadIdx.x;
@@ -244,7 +310,7 @@ cached_apply_kernel(const float* __restrict__ u, const T* __restrict__ S,
   const int j = (n / nz) % ny;
   const int i = n / (nz * ny);
   const T* Sc = S + static_cast<long long>(c * NDIM) * nodes + n;
-  float acc = 0.0f;
+  C acc = C(0);
 #pragma unroll
   for (int o = 0; o < St::NOFF; ++o) {
     const int si = NDIM == 3 ? o / 9 - 1 : 0;  // the offset's shift per axis
@@ -255,45 +321,45 @@ cached_apply_kernel(const float* __restrict__ u, const T* __restrict__ S,
     const int m = inside ? n + (si * ny + sj) * nz + sk : n;
 #pragma unroll
     for (int d = 0; d < NDIM; ++d) {
-      const float s = load_slot(Sc + static_cast<long long>(o * NDIM * NDIM + d) * nodes);
-      const float v = __ldg(u + static_cast<long long>(m) * NDIM + d);
-      acc = fmaf(s, inside ? v : 0.0f, acc);
+      const C s = load_slot(Sc + static_cast<long long>(o * NDIM * NDIM + d) * nodes);
+      const C v = __ldg(u + static_cast<long long>(m) * NDIM + d);
+      acc = fma_t(s, inside ? v : C(0), acc);
     }
   }
   f[static_cast<long long>(n) * NDIM + c] = acc;
 }
 
-template <typename T>
+template <typename T, typename C>
 int stencil_entry(const void* ke, void* S, int ndim, int ex, int ey, int ez,
                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* kp = static_cast<const float*>(ke);
+  const C* kp = static_cast<const C*>(ke);
   T* sp = static_cast<T*>(S);
   if (reinterpret_cast<unsigned long long>(ke) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  if (ndim == 3) return launch_stencil<3, T>(kp, sp, ex, ey, ez, s);
-  if (ndim == 2) return launch_stencil<2, T>(kp, sp, ex, ey, 1, s);
+  if (ndim == 3) return launch_stencil<3, T, C>(kp, sp, ex, ey, ez, s);
+  if (ndim == 2) return launch_stencil<2, T, C>(kp, sp, ex, ey, 1, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
+template <typename T, typename C>
 int apply_entry(const void* u, const void* S, void* f, int ndim, int ex, int ey,
                 int ez, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ndim != 2 && ndim != 3) return static_cast<int>(cudaErrorInvalidValue);
-  const float* up = static_cast<const float*>(u);
+  const C* up = static_cast<const C*>(u);
   const T* sp = static_cast<const T*>(S);
-  float* fp = static_cast<float*>(f);
+  C* fp = static_cast<C*>(f);
   if (ndim == 3) {
     const int nodes = (ex + 1) * (ey + 1) * (ez + 1);
     const dim3 block(kApplyNodes, 3);
-    cached_apply_kernel<3, T><<<(nodes + kApplyNodes - 1) / kApplyNodes, block, 0, s>>>(
+    cached_apply_kernel<3, T, C><<<(nodes + kApplyNodes - 1) / kApplyNodes, block, 0, s>>>(
         up, sp, fp, ex + 1, ey + 1, ez + 1);
   } else {
     const int nodes = (ex + 1) * (ey + 1);
     const dim3 block(kApplyNodes, 2);
-    cached_apply_kernel<2, T><<<(nodes + kApplyNodes - 1) / kApplyNodes, block, 0, s>>>(
+    cached_apply_kernel<2, T, C><<<(nodes + kApplyNodes - 1) / kApplyNodes, block, 0, s>>>(
         up, sp, fp, 1, ex + 1, ey + 1);
   }
   return static_cast<int>(cudaGetLastError());
@@ -301,30 +367,41 @@ int apply_entry(const void* u, const void* S, void* f, int ndim, int ex, int ey,
 
 }  // namespace
 
-// ke: (ex, ey[, ez], d_pe, d_pe) fp32, 16-B aligned; S: (3^N, N, N) + node
-// dims, fp32 (_f32) or bf16 (_bf16), written in full. Returns a cudaError_t
-// code.
+// ke: (ex, ey[, ez], d_pe, d_pe), fp32 (_f32, _bf16) or float64 (_f64),
+// 16-B aligned; S: (3^N, N, N) + node dims, fp32 (_f32), bf16 (_bf16) or
+// float64 (_f64), written in full. Returns a cudaError_t code.
 extern "C" int ndr_cached_stencil_f32(const void* ke, void* S, int ndim, int ex,
                                       int ey, int ez, void* stream) {
-  return stencil_entry<float>(ke, S, ndim, ex, ey, ez, stream);
+  return stencil_entry<float, float>(ke, S, ndim, ex, ey, ez, stream);
 }
 
 extern "C" int ndr_cached_stencil_bf16(const void* ke, void* S, int ndim, int ex,
                                        int ey, int ez, void* stream) {
-  return stencil_entry<unsigned short>(ke, S, ndim, ex, ey, ez, stream);
+  return stencil_entry<unsigned short, float>(ke, S, ndim, ex, ey, ez, stream);
 }
 
-// u: node dims + (N,) fp32; S: a stencil of the same grid from the assembly
-// of the same storage type; f: node dims + (N,) fp32, written in full.
-// Returns a cudaError_t code.
+extern "C" int ndr_cached_stencil_f64(const void* ke, void* S, int ndim, int ex,
+                                      int ey, int ez, void* stream) {
+  return stencil_entry<double, double>(ke, S, ndim, ex, ey, ez, stream);
+}
+
+// u: node dims + (N,), fp32 (_f32, _bf16) or float64 (_f64); S: a stencil
+// of the same grid from the assembly of the same storage type; f: like u,
+// written in full. Returns a cudaError_t code.
 extern "C" int ndr_apply_k_cached_f32(const void* u, const void* S, void* f,
                                       int ndim, int ex, int ey, int ez,
                                       void* stream) {
-  return apply_entry<float>(u, S, f, ndim, ex, ey, ez, stream);
+  return apply_entry<float, float>(u, S, f, ndim, ex, ey, ez, stream);
 }
 
 extern "C" int ndr_apply_k_cached_bf16(const void* u, const void* S, void* f,
                                        int ndim, int ex, int ey, int ez,
                                        void* stream) {
-  return apply_entry<unsigned short>(u, S, f, ndim, ex, ey, ez, stream);
+  return apply_entry<unsigned short, float>(u, S, f, ndim, ex, ey, ez, stream);
+}
+
+extern "C" int ndr_apply_k_cached_f64(const void* u, const void* S, void* f,
+                                      int ndim, int ex, int ey, int ez,
+                                      void* stream) {
+  return apply_entry<double, double>(u, S, f, ndim, ex, ey, ez, stream);
 }

@@ -18,14 +18,21 @@ apply_k_cached_bf16    apply_k_pallas_cached with a  cached_stencil.cu
                        bf16 Ke stream
 cached_stencil_bf16    ke_stream_layout cast to      cached_stencil.cu
                        bf16
+apply_k_cached_f64     apply_k_pallas_cached's       cached_stencil.cu
+                       function in float64 (XLA's
+                       apply_k_cached in JAX)
+cached_stencil_f64     the float64 stencil assembly  cached_stencil.cu
 =====================  ============================  ====================
 
 Plain twins: :func:`apply_k_fine_plain` for the four fine wrappers,
 :func:`apply_k_cached_f32_plain`, :func:`cached_stencil_plain`,
-:func:`apply_k_cached_bf16_plain` and :func:`cached_stencil_bf16_plain`.
+:func:`apply_k_cached_bf16_plain`, :func:`cached_stencil_bf16_plain`,
+:func:`apply_k_cached_f64_plain` and :func:`cached_stencil_f64_plain`.
 The bf16 pair stores the stencil in bf16 (the solver's
 ``cached_ke_dtype="bfloat16"``): the assembly sums in fp32 and rounds
-each slot once, the apply widens each slot and sums in fp32.
+each slot once, the apply widens each slot and sums in fp32. The float64
+pair serves the cached levels of a float64 hierarchy: a float64 Ke stack,
+stencil, u and f.
 The four fine applies are two designs, each instantiated for fp32 and
 for float64 (the refinement's true residual; Hopper has native FP64, so
 no hi/lo split). Both are element-centric in the basis of the element's
@@ -81,7 +88,7 @@ _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-
 #: Name suffix of the C entry points of each kernel type.
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 #: ... and of each storage type of the cached levels' stencil.
-_STENCIL_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_STENCIL_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches: Dict[str, int] = {
@@ -93,6 +100,8 @@ launches: Dict[str, int] = {
     "apply_k_fine_elem_f64": 0,
     "apply_k_cached_bf16": 0,
     "cached_stencil_bf16": 0,
+    "apply_k_cached_f64": 0,
+    "cached_stencil_f64": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -503,6 +512,16 @@ def cached_stencil_bf16_plain(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
     return cached_stencil_plain(Ke, grid).to(torch.bfloat16)
 
 
+#: Plain twin of :func:`cached_stencil_f64`: the dtype-generic
+#: :func:`cached_stencil_plain` on a float64 stack, summed in float64.
+cached_stencil_f64_plain = cached_stencil_plain
+
+
+def _compute_dtype(stencil_dtype: torch.dtype) -> torch.dtype:
+    """The type of Ke, u and f beside a stencil of ``stencil_dtype``."""
+    return torch.float64 if stencil_dtype == torch.float64 else torch.float32
+
+
 def _cached_stencil(Ke: torch.Tensor, grid: Grid, dtype: torch.dtype) -> torch.Tensor:
     sfx = _STENCIL_SUFFIX[dtype]
     name = "cached_stencil" if dtype == torch.float32 else f"cached_stencil_{sfx}"
@@ -510,9 +529,9 @@ def _cached_stencil(Ke: torch.Tensor, grid: Grid, dtype: torch.dtype) -> torch.T
         return cached_stencil_plain(Ke, grid).to(dtype)
     _check_grid(grid)
     d_pe = grid.nodes_per_elem * grid.ndim
-    _check("Ke", Ke, torch.float32, grid.dims + (d_pe, d_pe), Ke.device)
+    _check("Ke", Ke, _compute_dtype(dtype), grid.dims + (d_pe, d_pe), Ke.device)
     if Ke.data_ptr() % 16:
-        raise ValueError("Ke must be 16-byte aligned (the kernel reads float4)")
+        raise ValueError("Ke must be 16-byte aligned (the kernel reads 16-B vectors)")
     lib = _library()
     S = torch.empty(stencil_shape(grid), dtype=dtype, device=Ke.device)
     with torch.cuda.device(Ke.device):
@@ -535,6 +554,13 @@ def cached_stencil_bf16(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
     return _cached_stencil(Ke, grid, torch.bfloat16)
 
 
+def cached_stencil_f64(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """The float64 node stencil of a cached level of a float64 hierarchy
+    from its float64 stack ``Ke``, each slot summed in float64 in the
+    twin's order."""
+    return _cached_stencil(Ke, grid, torch.float64)
+
+
 def apply_k_cached_f32_plain(u, stencil, grid: Grid) -> torch.Tensor:
     """Plain twin of :func:`apply_k_cached_f32`: f[n] = sum over offsets
     o of S[o] u[n + o], u zero-padded by one node on every side."""
@@ -553,13 +579,18 @@ def apply_k_cached_bf16_plain(u, stencil, grid: Grid) -> torch.Tensor:
     return apply_k_cached_f32_plain(u, stencil.to(u.dtype), grid)
 
 
+#: Plain twin of :func:`apply_k_cached_f64`: the dtype-generic
+#: :func:`apply_k_cached_f32_plain` on float64 u and stencil.
+apply_k_cached_f64_plain = apply_k_cached_f32_plain
+
+
 def _apply_cached(u, stencil, grid: Grid, dtype: torch.dtype) -> torch.Tensor:
     sfx = _STENCIL_SUFFIX[dtype]
     name = f"apply_k_cached_{sfx}"
     if not _on_cuda(u):
         return apply_k_cached_f32_plain(u, stencil.to(u.dtype), grid)
     _check_grid(grid)
-    _check("u", u, torch.float32, grid.nodes_per_dim + (grid.ndim,), u.device)
+    _check("u", u, _compute_dtype(dtype), grid.nodes_per_dim + (grid.ndim,), u.device)
     _check("stencil", stencil, dtype, stencil_shape(grid), u.device)
     lib = _library()
     f = torch.empty_like(u)
@@ -586,8 +617,18 @@ def apply_k_cached_bf16(u: torch.Tensor, stencil: torch.Tensor,
     return _apply_cached(u, stencil, grid, torch.bfloat16)
 
 
+def apply_k_cached_f64(u: torch.Tensor, stencil: torch.Tensor,
+                       grid: Grid) -> torch.Tensor:
+    """f = K u in float64 from a float64 node stencil
+    (:func:`cached_stencil_f64`)."""
+    return _apply_cached(u, stencil, grid, torch.float64)
+
+
+_CACHED_APPLY = {torch.float32: apply_k_cached_f32, torch.bfloat16: apply_k_cached_bf16,
+                 torch.float64: apply_k_cached_f64}
+
+
 def apply_k_cached(u: torch.Tensor, stencil: torch.Tensor, grid: Grid) -> torch.Tensor:
-    """The cached apply of the stencil's storage type (fp32 or bf16)."""
-    if stencil.dtype == torch.bfloat16:
-        return apply_k_cached_bf16(u, stencil, grid)
-    return apply_k_cached_f32(u, stencil, grid)
+    """The cached apply of the stencil's storage type (fp32, bf16 or
+    float64)."""
+    return _CACHED_APPLY[stencil.dtype](u, stencil, grid)

@@ -14,9 +14,13 @@ kernel, every non-coarsest cached level through
 :func:`kernels.apply_k_cached` from its node stencil (assembled once per
 hierarchy build by :func:`kernels.cached_stencil`, or in bf16 under
 ``cached_ke_dtype="bfloat16"``), and the refinement's true residual
-through the float64 fine kernel. Which fine kernels (node- or
+through the float64 fine kernel. A float64 hierarchy applies level 0
+with the float64 fine kernel and its cached levels from float64 stencils
+(:func:`kernels.cached_stencil_f64`). Which fine kernels (node- or
 element-centric) is the ``fine_kernel`` setting, with the JAX package's
-dispatch (:func:`kernels.fine_kernels`). The GS sweep itself is torch
+dispatch (:func:`kernels.fine_kernels`). The kernels take degree-1
+grids: ``use_kernels="auto"`` resolves to the plain applies on another
+degree, as the JAX package takes XLA there. The GS sweep itself is torch
 ops: each colour is updated on its own stride-2 sub-lattice, and its
 residual update K du reads only what touches that colour
 (:func:`apply_k_parity`). lambda_max is the pencil bound, or with
@@ -47,8 +51,6 @@ from ndr_tpu_torch.fem import operators as ops
 from ndr_tpu_torch.fem import solvers
 from ndr_tpu_torch.fem.simulator import FEMProblem
 
-_TODO_X64 = "ROADMAP.md Queue 2 item 6 (float64 end to end on CUDA)"
-_TODO_DEGREE2 = "ROADMAP.md Queue 1 item 4 (degree-2 paths)"
 SMOOTHERS = ("gs", "chebyshev")
 #: Storage types of the intermediate cached levels (``cached_ke_dtype``).
 CACHED_KE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
@@ -406,8 +408,9 @@ class LevelState:
     kind: str = "cached"
     stencil: Optional[torch.Tensor] = None
     parent: Optional["LevelState"] = None  # transfer levels only
-    # level 0 with kernels: the fp32 apply and the float64 residual's apply
-    # that the ``fine_kernel`` setting names (kernels.fine_kernels)
+    # level 0 with kernels: the apply of young's dtype and the float64
+    # residual's apply that the ``fine_kernel`` setting names
+    # (kernels.fine_kernels)
     fine_apply: Optional[Callable] = None
     fine_apply64: Optional[Callable] = None
 
@@ -438,12 +441,11 @@ def build_level_states(
     """The hierarchy's operators for one modulus field (``Dinv`` and
     ``lmax`` only for the Chebyshev smoother).
 
-    ``use_kernels`` routes the fine level (through the fp32 kernel that
-    ``fine_kernel`` names) and every non-coarsest cached level through the
-    CUDA kernels, which take fp32 degree-1 hierarchies.
-    On CUDA tensors any other hierarchy raises rather than run the plain
-    ops on the card; on CPU tensors the plain ops serve it (the wrappers
-    run their plain twins there anyway).
+    ``use_kernels`` routes the fine level (through the kernel of young's
+    dtype that ``fine_kernel`` names) and every non-coarsest cached level
+    (through the stencil kernels of the level's storage type) through the
+    CUDA kernel wrappers, which run their plain twins on CPU tensors. They
+    take degree-1 grids: on another degree ``use_kernels`` raises.
 
     ``cached_ke_dtype="bfloat16"`` stores the intermediate cached levels
     of an fp32 hierarchy in bf16: their node stencil with kernels on,
@@ -460,16 +462,15 @@ def build_level_states(
     stats["hierarchy_builds"] += 1
     apply32, apply64 = kernels.fine_kernels(fine_kernel)
     degree = cfg.levels[0].grid.degree
-    if use_kernels and young.device.type == "cuda":
-        if young.dtype != torch.float32:
-            raise NotImplementedError(
-                f"CUDA kernels on a {young.dtype} hierarchy: only the fp32 "
-                f"hierarchy has kernels ({_TODO_X64})")
-        if degree != 1:
-            raise NotImplementedError(
-                f"CUDA kernels on degree-{degree} elements: {_TODO_DEGREE2}")
-    use_kernels = use_kernels and young.dtype == torch.float32 and degree == 1
+    if use_kernels and degree != 1:
+        raise ValueError(f"use_kernels on degree-{degree} elements: the CUDA "
+                         "kernels take degree-1 grids (use_kernels='auto' takes "
+                         "the plain applies there)")
+    f64 = young.dtype == torch.float64
     low = CACHED_KE_DTYPES[cached_ke_dtype] if young.dtype == torch.float32 else None
+    fine_apply = apply64 if f64 else apply32
+    assemble = (kernels.cached_stencil_f64 if f64 else kernels.cached_stencil_bf16
+                if low == torch.bfloat16 else kernels.cached_stencil)
     states = []
     last = cfg.num_levels - 1
     prev_ke = None
@@ -488,8 +489,6 @@ def build_level_states(
             # prev_ke keeps the fp32 stack for the next level's coarsen_ke
             prev_ke = Ke
             if use_kernels and l != last:
-                assemble = (kernels.cached_stencil_bf16 if low == torch.bfloat16
-                            else kernels.cached_stencil)
                 stencil = assemble(Ke.contiguous(), lev.grid)
                 Ke = None
             elif low is not None and l != last:
@@ -510,7 +509,7 @@ def build_level_states(
                 kind=kind,
                 stencil=stencil,
                 parent=states[-1] if kind == "transfer" else None,
-                fine_apply=apply32 if use_kernels and l == 0 else None,
+                fine_apply=fine_apply if use_kernels and l == 0 else None,
                 fine_apply64=apply64 if use_kernels and l == 0 else None,
             )
         )
@@ -930,11 +929,26 @@ def _resolve_coarse_solver(settings: MGSolverSettings,
     return "ns" if ndofs <= NS_AUTO_MAX_DOFS else "cholesky"
 
 
-def resolve_use_kernels(setting, device: torch.device) -> bool:
-    """``"auto"`` means on for CUDA tensors; True/False are explicit."""
+def resolve_use_kernels(setting, device: torch.device, grid: Grid) -> bool:
+    """``"auto"`` means on for CUDA tensors of a degree-1 grid (the
+    kernels' grids; the JAX package takes XLA on other degrees);
+    True/False are explicit."""
     if setting == "auto":
-        return torch.device(device).type == "cuda"
+        return torch.device(device).type == "cuda" and grid.degree == 1
     return bool(setting)
+
+
+def describe_applies(prob: FEMProblem, settings: MGSolverSettings) -> str:
+    """Which stiffness applies a solve with ``settings`` runs on ``prob``,
+    for the run's log."""
+    if resolve_use_kernels(settings.use_kernels, prob.device, prob.grid):
+        if prob.device.type == "cuda":
+            return f"CUDA kernels (fine_kernel={settings.fine_kernel})"
+        return "the kernel wrappers' plain twins (CPU tensors)"
+    why = (f"degree-{prob.grid.degree} grid: the kernels take degree 1"
+           if prob.grid.degree != 1 and settings.use_kernels == "auto"
+           else f"use_kernels={settings.use_kernels!r} on {prob.device.type}")
+    return f"plain torch ops ({why})"
 
 
 def _use_refined(prob: FEMProblem, settings: MGSolverSettings) -> bool:
@@ -947,7 +961,7 @@ def _build_hierarchy(cfg: MGConfig, prob: FEMProblem, young: torch.Tensor,
     factor (None for the block-Jacobi preconditioner)."""
     levels = build_level_states(
         cfg, prob, young, smoother=settings.smoother,
-        use_kernels=resolve_use_kernels(settings.use_kernels, prob.device),
+        use_kernels=resolve_use_kernels(settings.use_kernels, prob.device, prob.grid),
         fine_kernel=settings.fine_kernel, power_iters=settings.lmax_power_iters,
         cached_ke_dtype=settings.cached_ke_dtype)
     if settings.precond == "jacobi":

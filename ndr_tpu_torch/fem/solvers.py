@@ -22,16 +22,26 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def assemble_dense_k_traced(Ke: torch.Tensor, grid: Grid) -> torch.Tensor:
     """Assemble the dense K (n_dofs, n_dofs) from per-element matrices
-    ``Ke`` (dims..., d_pe, d_pe) on Ke's device."""
+    ``Ke`` (dims..., d_pe, d_pe) on Ke's device.
+
+    One ``index_add_`` per local node a, of the rows of a in every
+    element: within one call no two entries share a target (an element's
+    node a is no other element's), so the sums take the order of a on
+    every device and every run (one call over all elements would add the
+    shared targets with atomics, in no fixed order, on CUDA)."""
     N = grid.ndim
     n_dofs = grid.num_nodes * N
     enodes = ops.element_node_flat_indices(grid)          # (ne, npe) numpy
     dofs = np.stack(
         [N * enodes + c for c in range(N)], axis=-1
     ).reshape(grid.num_elements, -1)                      # (ne, d_pe)
-    flat = (dofs[:, :, None] * n_dofs + dofs[:, None, :]).reshape(-1)
+    Ke = Ke.reshape(grid.num_elements, dofs.shape[1], dofs.shape[1])
     K = torch.zeros(n_dofs * n_dofs, dtype=Ke.dtype, device=Ke.device)
-    K.index_add_(0, torch.as_tensor(flat, device=Ke.device), Ke.reshape(-1))
+    for a in range(grid.nodes_per_elem):
+        rows = slice(a * N, (a + 1) * N)
+        flat = (dofs[:, rows, None] * n_dofs + dofs[:, None, :]).reshape(-1)
+        K.index_add_(0, torch.as_tensor(flat, device=Ke.device),
+                     Ke[:, rows, :].reshape(-1))
     return K.reshape(n_dofs, n_dofs)
 
 

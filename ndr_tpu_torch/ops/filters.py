@@ -1,11 +1,12 @@
 """Density filters, differentiable under autograd (counterpart of
-``ndr_tpu/ops/filters.py``; the Langelaar and callback filters are not
-ported yet, ROADMAP.md Queue 1 item 4).
+``ndr_tpu/ops/filters.py``).
 
 Two families:
 
 1. Solver-side filters of the classic SIMP pipeline:
-   :class:`ProjectionFilter` and :class:`SmoothingFilter`.
+   :class:`ProjectionFilter`, :class:`SmoothingFilter`, the
+   additive-manufacturing overhang filter :class:`LangelaarFilter`, and
+   :class:`CallbackFilter` around any differentiable callable.
 2. Training-side filters of the neural pipeline: tanh projection
    centered at 0, reflect-padded separable box and Gaussian blurs, and
    the :class:`AdaptiveFilterState` schedule.
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,14 +46,37 @@ class ProjectionFilter(Filter):
         return 0.5 * (t + torch.tanh(b * (x - 0.5))) / t
 
 
+def _box_pool(x: torch.Tensor, r: int, **kwargs) -> torch.Tensor:
+    pool = {2: F.avg_pool2d, 3: F.avg_pool3d}[x.ndim]
+    return pool(x[None, None], kernel_size=2 * r + 1, stride=1, padding=r, **kwargs)[0, 0]
+
+
+class _ClippedBoxMean(torch.autograd.Function):
+    """y = (window sum of x) / (in-bounds count), and its transpose
+    x_bar = window sum of (y_bar / count): the window is symmetric, so the
+    backward is a pooling forward too. Pooling's own backward on CUDA
+    adds the overlapping windows with atomics, in no fixed order; this one
+    gathers, so a gradient is the same bits on every run."""
+
+    @staticmethod
+    def forward(ctx, x, r):
+        ctx.r = r
+        return _box_pool(x, r, count_include_pad=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        count = _box_pool(torch.ones_like(g), ctx.r, divisor_override=1)
+        return _box_pool(g / count, ctx.r, divisor_override=1), None
+
+
 @dataclasses.dataclass
 class SmoothingFilter(Filter):
     """Cube-neighborhood mean with boundary-clipped stencils: each cell
     averages over the in-bounds part of the radius-r cube around it.
 
     ``avg_pool`` with ``count_include_pad=False`` is exactly the clipped
-    window sum divided by the clipped count, and its autograd is the
-    transpose."""
+    window sum divided by the clipped count; the gradient is its
+    transpose (:class:`_ClippedBoxMean`)."""
 
     radius: int = 1
 
@@ -60,9 +84,65 @@ class SmoothingFilter(Filter):
         r = int(round(self.radius))
         if r <= 0:
             return x
-        pool = {2: F.avg_pool2d, 3: F.avg_pool3d}[x.ndim]
-        return pool(x[None, None], kernel_size=2 * r + 1, stride=1, padding=r,
-                    count_include_pad=False)[0, 0]
+        return _ClippedBoxMean.apply(x, r)
+
+
+def _shifted(p: torch.Tensor, axis: int, step: int) -> torch.Tensor:
+    """p moved by one along ``axis`` (``step`` -1: out[i] = p[i - 1];
+    +1: out[i] = p[i + 1]), zero where that falls off the field."""
+    n = p.shape[axis]
+    zero = torch.zeros_like(p.narrow(axis, 0, 1))
+    if step < 0:
+        return torch.cat([zero, p.narrow(axis, 0, n - 1)], axis)
+    return torch.cat([p.narrow(axis, 1, n - 1), zero], axis)
+
+
+@dataclasses.dataclass
+class LangelaarFilter(Filter):
+    """Additive-manufacturing overhang filter (Langelaar 2017).
+
+    Sweeps the layers along the LAST axis (the build direction): a voxel
+    is no denser than a smooth minimum of its own value and a P-norm
+    maximum of its supporting voxels in the printed layer below (directly
+    below and its one-step neighbours in each other axis). A host loop over
+    the layers, each a few elementwise ops on one layer; autograd through
+    it gives the reference's hand-written backprop."""
+
+    P: float = 40.0
+    Q: float = 40.0 - 1.58
+    epsilon: float = 1e-4
+
+    def _smax_support(self, below: torch.Tensor) -> torch.Tensor:
+        """P-norm 'max' over each voxel's supporting region in ``below``
+        (the previous layer's printed densities, dims[:-1])."""
+        p = torch.abs(below) ** self.P
+        total = p
+        for axis in range(below.ndim):
+            total = total + _shifted(p, axis, -1) + _shifted(p, axis, 1)
+        return total ** (1.0 / self.Q)
+
+    def _smin(self, x1, x2):
+        return 0.5 * (x1 + x2 - torch.sqrt((x1 - x2) ** 2 + self.epsilon)
+                      + math.sqrt(self.epsilon))
+
+    def apply(self, x):
+        layers = torch.movedim(x, -1, 0)
+        out = [layers[0]]
+        for layer in layers[1:]:
+            out.append(self._smin(layer, self._smax_support(out[-1])))
+        return torch.movedim(torch.stack(out), 0, -1)
+
+
+@dataclasses.dataclass
+class CallbackFilter(Filter):
+    """A filter around any differentiable callable ``fn`` (the reference's
+    PythonFilter, which needs explicit apply and backprop callbacks; here
+    autograd gives the backprop)."""
+
+    fn: Callable = None
+
+    def apply(self, x):
+        return self.fn(x)
 
 
 def apply_filter_chain(x: torch.Tensor, filters: Sequence[Filter]) -> torch.Tensor:

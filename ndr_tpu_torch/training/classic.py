@@ -3,7 +3,9 @@
 
 Smoothing + projection filters, total-volume constraint, MGPCG
 compliance objective (tol=1e-4, FMG, 1 MG iteration, 2 smoothing sweeps,
-warm-started), OC optimizer, run as a host loop of eager steps.
+warm-started), OC optimizer, run as a host loop of eager steps; or, with
+``optimizer="LBFGS"``, the augmented-Lagrangian projected L-BFGS of
+:mod:`ndr_tpu_torch.ops.lbfgs` (the reference's IPOPT mode).
 
 ``precond_lag`` > 1 rebuilds the multigrid hierarchy every that many
 steps (the CG operator stays exact; the lagged hierarchy only
@@ -32,6 +34,7 @@ from ndr_tpu_torch.fem import multigrid as mg
 from ndr_tpu_torch.fem import topopt
 from ndr_tpu_torch.fem.simulator import problem_from_config
 from ndr_tpu_torch.ops import filters as flt
+from ndr_tpu_torch.ops import lbfgs
 from ndr_tpu_torch.utils import timers
 
 
@@ -44,10 +47,13 @@ class ClassicResult:
     history: List[float]
     seconds: float
     step_seconds: List[float]      # wall time of each OC step (no callbacks;
-                                   # chunked steps: the chunk's wall / chunk)
+                                   # chunked steps: the chunk's wall / chunk;
+                                   # LBFGS: of each inner iteration)
     # multigrid.stats over the OC steps: hierarchy builds, CUDA-graph
     # captures, replays and capture seconds
     solver_stats: dict = dataclasses.field(default_factory=dict)
+    # LBFGS: objective + gradient evaluations (one solve each)
+    evaluations: int = 0
 
 
 def _not_ported(what: str, item: str):
@@ -86,10 +92,15 @@ def ground_truth_topopt(
     Defaults are ``ndr_tpu``'s: fp32 hot path with float64-refined
     equilibrium, Chebyshev smoother of degree 1 per smoothing sweep.
     ``solver_overrides``: ``MGSolverSettings`` fields to replace (e.g.
-    ``{"cached_ke_dtype": "bfloat16"}``).
+    ``{"cached_ke_dtype": "bfloat16"}``). ``optimizer``: "OC" or "LBFGS"
+    (``max_iter`` then bounds its inner iterations; ``history`` holds 2 c
+    at the start of each, then the restored design's).
     """
-    if optimizer != "OC":
-        _not_ported(f"optimizer={optimizer!r}", "Queue 1 item 4 (ops/lbfgs.py)")
+    if optimizer not in ("OC", "LBFGS"):
+        raise ValueError(f"optimizer={optimizer!r}: OC or LBFGS")
+    if optimizer == "LBFGS" and (precond_lag > 1 or scan_chunk > 1):
+        raise ValueError("optimizer='LBFGS' has neither a lagged preconditioner "
+                         "(precond_lag) nor a chunked loop (scan_chunk)")
     if (shards if isinstance(shards, int) else max(shards)) > 1:
         _not_ported("shards", "Queue 1 item 6 (parallel/mesh.py)")
     device = torch.device(device)
@@ -123,10 +134,12 @@ def ground_truth_topopt(
         settings = dataclasses.replace(settings, **(solver_overrides or {}))
         solve = mg.make_mg_solver(prob, settings)
         mixed = settings.mixed_precision and dtype == torch.float32
+        log(f"Stiffness applies: {mg.describe_applies(prob, solve.settings)}\n")
     else:
         def solve(rho, u0):
             return topopt.solve_displacement_cg(prob, rho, u0, tol=tol,
                                                 max_iter=10000)
+        log("Stiffness applies: plain torch ops (mgl=0: block-Jacobi CG)\n")
 
     top = topopt.TopologyOptimizationProblem(
         prob=prob, filters=filters, max_volume=cfg.max_volume, solve=solve
@@ -191,34 +204,44 @@ def ground_truth_topopt(
     stats0 = dict(mg.stats)
     t_start = time.perf_counter()
     t_iter = t_start
-    with timers.section("OC optimization"):
-        idx = 0
-        while chunk and idx + chunk <= max_iter:
-            t_chunk = time.perf_counter()
-            chunk_metrics = []
-            for j in range(chunk):
-                if j % block == 0:
-                    chunk_precond = build_precond(state.x, into=chunk_precond,
-                                                  use_graph=device.type == "cuda")
-                state, metrics = topopt.oc_step(top, state, m=oc_move, ctol=oc_ctol,
-                                                precond=chunk_precond)
-                chunk_metrics.append(metrics)
-            now = time.perf_counter()  # oc_step ends on host reads: synced
-            dt = (now - t_chunk) / chunk
-            for j, metrics in enumerate(chunk_metrics):
-                step_seconds.append(dt)
-                log_step(idx + j, dt, metrics)
-            idx += chunk
-            t_iter = time.perf_counter()
-            boundary(idx - 1, state)
-        for idx in range(idx, max_iter):
-            t_step = time.perf_counter()
-            state, metrics = host_step(state)
-            now = time.perf_counter()  # oc_step ends on host reads: synced
-            step_seconds.append(now - t_step)
-            log_step(idx, now - t_iter, metrics)
-            t_iter = time.perf_counter()
-            boundary(idx, state)
+    evaluations = 0
+    if optimizer == "LBFGS":
+        with timers.section("LBFGS optimization"):
+            res = lbfgs.lbfgs_topopt(
+                top, x0, max_iter=max_iter, log=log, log_every=log_every,
+                callback=lambda i, x: boundary(i, dataclasses.replace(state, x=x)))
+        history, step_seconds = list(res.history), res.step_seconds
+        evaluations = res.evaluations
+        state = dataclasses.replace(state, x=res.x)
+    else:
+        with timers.section("OC optimization"):
+            idx = 0
+            while chunk and idx + chunk <= max_iter:
+                t_chunk = time.perf_counter()
+                chunk_metrics = []
+                for j in range(chunk):
+                    if j % block == 0:
+                        chunk_precond = build_precond(state.x, into=chunk_precond,
+                                                      use_graph=device.type == "cuda")
+                    state, metrics = topopt.oc_step(top, state, m=oc_move, ctol=oc_ctol,
+                                                    precond=chunk_precond)
+                    chunk_metrics.append(metrics)
+                now = time.perf_counter()  # oc_step ends on host reads: synced
+                dt = (now - t_chunk) / chunk
+                for j, metrics in enumerate(chunk_metrics):
+                    step_seconds.append(dt)
+                    log_step(idx + j, dt, metrics)
+                idx += chunk
+                t_iter = time.perf_counter()
+                boundary(idx - 1, state)
+            for idx in range(idx, max_iter):
+                t_step = time.perf_counter()
+                state, metrics = host_step(state)
+                now = time.perf_counter()  # oc_step ends on host reads: synced
+                step_seconds.append(now - t_step)
+                log_step(idx, now - t_iter, metrics)
+                t_iter = time.perf_counter()
+                boundary(idx, state)
     solver_stats = {k: mg.stats[k] - v for k, v in stats0.items()}
     chunk_precond = lag_state["precond"] = None  # free the lagged hierarchies
 
@@ -255,4 +278,5 @@ def ground_truth_topopt(
         seconds=seconds,
         step_seconds=step_seconds,
         solver_stats=solver_stats,
+        evaluations=evaluations,
     )

@@ -37,9 +37,12 @@ def main(argv=None):
     p.add_argument("--v0", help="volume-fraction override", default=None)
     p.add_argument("--mgl", help="multigrid coarsening levels", default=2, type=int)
     p.add_argument("--iter", help="OC iterations", default=100, type=int)
-    p.add_argument("--optim", help="optimizer (OC)", default="OC")
+    p.add_argument("--optim", default="OC", choices=["OC", "LBFGS"],
+                   help="optimizer: OC, or LBFGS (augmented-Lagrangian projected "
+                        "L-BFGS; --iter bounds its inner iterations)")
     p.add_argument("--x64", action="store_true",
-                   help="run in float64 end to end (CPU only, plain ops)")
+                   help="run in float64 end to end (on CUDA with the float64 "
+                        "kernels)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; asking for cuda without "
                         "a card raises, it never falls back to the CPU)")
@@ -69,24 +72,17 @@ def main(argv=None):
                         "metrics and callbacks at chunk boundaries; on CUDA the "
                         "preconditioner replays from a CUDA graph")
     args = p.parse_args(argv)
+    if args.optim == "LBFGS" and (args.precond_lag > 1 or args.scan > 1):
+        p.error("--optim LBFGS takes neither --precond-lag nor --scan (OC only)")
 
     setup()
     device = resolve_device(args.device)
-    if args.x64 and device.type != "cpu":
-        raise NotImplementedError(
-            "--x64 on CUDA: the fp32 kernels take no float64 and no float64 "
-            "cached kernel is ported yet (ROADMAP.md Queue 2 item 6); use "
-            "--device cpu")
     dtype = torch.float64 if args.x64 else torch.float32
 
     cfg = load_problem(args.prob)
     dims = ast.literal_eval(args.grid) if args.grid else None
     if args.v0 is not None:
         cfg = dataclasses.replace(cfg, max_volume=float(args.v0))
-    if args.optim != "OC":
-        raise NotImplementedError(
-            f"optimizer {args.optim!r} is not ported yet (ROADMAP.md Queue 1 "
-            "item 4, ops/lbfgs.py)")
 
     timers.reset()
     os.makedirs(args.out, exist_ok=True)

@@ -8,7 +8,8 @@ Example:
 Same flags, log lines and artifacts as the JAX CLI, except: ``--device``
 (default cuda) replaces ``--cpu``; ``--kernels auto|on|off`` replaces
 ``--pallas``; ``--fine-kernel flat32|variant|flat`` replaces the
-``NDR_FINE_KERNEL`` environment variable; ``--x64`` runs on the CPU only.
+``NDR_FINE_KERNEL`` environment variable; ``--x64`` runs the MLP, the
+solve and Adam in float64 (on CUDA with the float64 kernels).
 """
 
 from __future__ import annotations
@@ -67,7 +68,8 @@ def main(argv=None) -> XDGResult:
     p.add_argument("--sigma", default=1.0, type=float, help="Fourier feature scale")
     p.add_argument("--out", default="logs/ff")
     p.add_argument("--x64", action="store_true",
-                   help="run in float64 end to end (CPU only, plain ops)")
+                   help="run in float64 end to end (on CUDA with the float64 "
+                        "kernels)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; asking for cuda without "
                         "a card raises, it never falls back to the CPU)")
@@ -118,11 +120,6 @@ def main(argv=None) -> XDGResult:
 
     setup()
     device = resolve_device(args.device)
-    if args.x64 and device.type != "cpu":
-        raise NotImplementedError(
-            "--x64 on CUDA: the fp32 kernels take no float64 and no float64 "
-            "cached kernel is ported yet (ROADMAP.md Queue 2 item 6); use "
-            "--device cpu")
     dtype = torch.float64 if args.x64 else torch.float32
 
     cfg = load_problem(args.prob)

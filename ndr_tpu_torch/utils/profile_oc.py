@@ -5,7 +5,7 @@
         [--prob problems/3d/cantilever_flexion.json] [--grid "[192,96,96]"] \\
         [--mgl 3] [--steps 3] [--kernels on,off] [--smoother chebyshev|gs] \\
         [--precond-lag K] [--scan C] [--settings '{"cached_ke_dtype": "bfloat16"}'] \\
-        [--warm N]
+        [--warm N] [--x64] [--optim OC|LBFGS]
 
 For each kernels setting it runs ``2 + steps + 1`` OC steps on CUDA:
 
@@ -33,6 +33,13 @@ graph's captures, replays and capture seconds. ``--warm N`` starts each
 run from the design of N fresh OC steps (untimed), as the JAX package's
 ``scripts/profile_oc.py --warm`` does: from the uniform start a lagged
 hierarchy stalls CG after the first large OC moves.
+
+``--x64`` runs the problem in float64 (the float64 kernels with kernels
+on). ``--optim LBFGS`` profiles the L-BFGS optimizer instead, with one
+inner iteration in the place of an OC step (the optimizer calls the
+callback after each): two iterations of warm-up, ``steps`` synced, one
+traced; an iteration's line search runs one or more objective
+evaluations (solves), reported per iteration.
 
 With ``--smoother gs`` the GS sweeps are also tallied per level: in the
 synced steps each sweep is timed between two syncs (sweeps per step, ms
@@ -214,7 +221,8 @@ def device_summary(prof):
 
 def profile(cfg, dims, mgl: int, steps: int, kernels_mode: str, device,
             smoother: str = "chebyshev", lag: int = 0, scan: int = 0,
-            overrides=None, warm_steps: int = 0):
+            overrides=None, warm_steps: int = 0, dtype=torch.float32,
+            optimizer: str = "OC"):
     tag = f"[{kernels_mode}]"
     use_kernels = {"on": True, "off": False}[kernels_mode]
     init = None
@@ -222,7 +230,7 @@ def profile(cfg, dims, mgl: int, steps: int, kernels_mode: str, device,
         init = ground_truth_topopt(
             cfg, dims=dims, max_iter=warm_steps, multigrid_levels=mgl,
             smoother=smoother, use_kernels=use_kernels, device=device,
-            log=lambda s: None, solver_overrides=overrides).densities
+            log=lambda s: None, solver_overrides=overrides, dtype=dtype).densities
     on, seconds, calls = [False], defaultdict(float), defaultdict(int)
     gs_s, gs_n, gs_last = defaultdict(float), defaultdict(int), {}
     prof = torch.profiler.profile(
@@ -235,6 +243,7 @@ def profile(cfg, dims, mgl: int, steps: int, kernels_mode: str, device,
         warm, n_synced, n_traced = WARMUP, steps, 1
     traced = warm + n_synced   # the first traced step
     total = traced + n_traced
+    lbfgs_run = optimizer == "LBFGS"
 
     def callback(idx, state):
         # runs after step idx (chunked: after the chunk that ends at idx):
@@ -250,18 +259,31 @@ def profile(cfg, dims, mgl: int, steps: int, kernels_mode: str, device,
     torch.cuda.reset_peak_memory_stats()
     tally = gs_sweep_tally(on, gs_s, gs_n, gs_last) if scan <= 1 else contextlib.nullcontext()
     with synced_sections(on, seconds, calls), tally:
+        t_run = time.perf_counter()
         result = ground_truth_topopt(
             cfg, dims=dims, max_iter=total, multigrid_levels=mgl,
             smoother=smoother, use_kernels=use_kernels, init=init,
             device=device, callback=callback, log=lambda s: None,
-            precond_lag=lag, scan_chunk=scan, solver_overrides=overrides)
+            precond_lag=lag, scan_chunk=scan, solver_overrides=overrides,
+            dtype=dtype, optimizer=optimizer)
+        t_run = time.perf_counter() - t_run
     peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(result.step_seconds) < total:
+        raise RuntimeError(f"{optimizer} stopped after {len(result.step_seconds)} "
+                           f"iterations, before the {total} profiled")
 
-    report(tag, "s/OC-iter", SECTIONS, seconds, calls, n_synced,
-           result.step_seconds[warm:traced], sum(result.step_seconds[traced:total]),
+    traced_wall = sum(result.step_seconds[traced:total])
+    report(tag, "s/OC-iter" if not lbfgs_run else "s per L-BFGS iteration", SECTIONS,
+           seconds, calls, n_synced, result.step_seconds[warm:traced], traced_wall,
            prof, n_traced)
+    if lbfgs_run:
+        n_it = len(result.step_seconds)
+        print(f"{tag} L-BFGS: {n_it} inner iterations, {result.evaluations} objective "
+              f"evaluations ({result.evaluations / n_it:.2f} per iteration), run wall "
+              f"{t_run:.3f} s")
     st = result.solver_stats
-    print(f"{tag} peak memory {peak:.2f} GiB; {total} steps: hierarchy builds "
+    print(f"{tag} peak memory {peak:.2f} GiB; {total} "
+          f"{'iterations' if lbfgs_run else 'steps'}: hierarchy builds "
           f"{st['hierarchy_builds']}, graph captures {st['graph_captures']} "
           f"({st['graph_capture_seconds']:.3f} s), replays {st['graph_replays']}")
     if gs_last:
@@ -283,7 +305,11 @@ def main(argv=None):
                         '\'{"lmax_power_iters": 8}\'')
     p.add_argument("--warm", default=0, type=int,
                    help="start from the design of this many fresh OC steps")
+    p.add_argument("--x64", action="store_true", help="the problem in float64")
+    p.add_argument("--optim", default="OC", choices=["OC", "LBFGS"])
     args = p.parse_args(argv)
+    if args.optim == "LBFGS" and (args.precond_lag > 1 or args.scan > 1):
+        p.error("--optim LBFGS takes neither --precond-lag nor --scan (OC only)")
 
     setup()
     device = resolve_device("cuda")
@@ -292,10 +318,11 @@ def main(argv=None):
     overrides = json.loads(args.settings) if args.settings else None
     print(f"profile_oc: {args.prob} {dims} mgl={args.mgl} smoother={args.smoother} "
           f"precond_lag={args.precond_lag} scan={args.scan} settings={overrides} "
-          f"warm={args.warm}")
+          f"warm={args.warm} x64={args.x64} optim={args.optim}")
     for kernels_mode in args.kernels.split(","):
         profile(cfg, dims, args.mgl, args.steps, kernels_mode, device, args.smoother,
-                args.precond_lag, args.scan, overrides, args.warm)
+                args.precond_lag, args.scan, overrides, args.warm,
+                torch.float64 if args.x64 else torch.float32, args.optim)
 
 
 if __name__ == "__main__":

@@ -154,10 +154,12 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_voxelfem.main(base)          # --device defaults to cuda
-    for extra in (["--shards", "2"], ["--optim", "LBFGS"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            train_voxelfem.main(base + ["--device", "cpu"] + extra)
-    # the GS smoother, the lagged preconditioner and the chunked loop are ported
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train_voxelfem.main(base + ["--device", "cpu", "--shards", "2"])
+    # L-BFGS, float64, the GS smoother, the lagged preconditioner and the
+    # chunked loop are ported
+    result = train_voxelfem.main(base + ["--device", "cpu", "--optim", "LBFGS", "--x64"])
+    assert len(result.history) == 2 and np.isfinite(result.history).all()
     result = train_voxelfem.main(base + ["--device", "cpu", "--mgl", "1",
                                          "--smoother", "gs"])
     assert np.isfinite(result.history).all()

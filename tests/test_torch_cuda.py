@@ -79,7 +79,8 @@ def test_fine_kernels_match_twins(device, prob_path, dims):
     assert kernels.launches == {"apply_k_fine_f32": 1, "apply_k_fine_elem_f32": 1,
                                 "apply_k_cached_f32": 0, "cached_stencil": 0,
                                 "apply_k_fine_f64": 1, "apply_k_fine_elem_f64": 1,
-                                "apply_k_cached_bf16": 0, "cached_stencil_bf16": 0}
+                                "apply_k_cached_bf16": 0, "cached_stencil_bf16": 0,
+                                "apply_k_cached_f64": 0, "cached_stencil_f64": 0}
 
 
 @pytest.mark.parametrize("prob_path,dims", CASES)
@@ -146,6 +147,40 @@ def test_bf16_cached_kernels_match_twins(device, prob_path, dims):
         assert _rel(f, kernels.apply_k_cached_bf16_plain(u, S, g)) < 1e-5
     assert kernels.launches["cached_stencil_bf16"] == len(stacks)
     assert kernels.launches["apply_k_cached_bf16"] == len(stacks)
+    assert kernels.launches["cached_stencil"] == kernels.launches["apply_k_cached_f32"] == 0
+
+
+@pytest.mark.parametrize("prob_path,dims", CASES)
+def test_f64_cached_kernels_match_twins(device, prob_path, dims):
+    """The float64 stencil assembly (float64 sums in the twin's order:
+    bitwise equal) and the float64 apply (within 1e-12 of max|f|: the
+    summation order differs) on a random stack on the grid and on the
+    float64 Galerkin level-1 and level-2 stacks."""
+    prob, grid = problem_from_config(load_problem(prob_path), dims=dims,
+                                     dtype=torch.float64, device=device)
+    rng = np.random.default_rng(14)
+    d = grid.nodes_per_elem * grid.ndim
+    stacks = [(grid, torch.tensor(rng.standard_normal(grid.dims + (d, d)), device=device))]
+    levels = min(2, mg.max_feasible_coarsenings(grid))
+    if levels:
+        cfg = mg.build_mg_config(prob, levels)
+        young = prob.young(torch.tensor(rng.uniform(0.1, 1.0, grid.dims), device=device))
+        Ke = mg.build_level_ke(cfg, young, 1)
+        stacks.append((cfg.levels[1].grid, Ke))
+        if levels == 2:
+            stacks.append((cfg.levels[2].grid, mg.coarsen_ke(Ke, grid.ndim).contiguous()))
+    kernels.reset_launches()
+    for g, Ke in stacks:
+        S = kernels.cached_stencil_f64(Ke, g)
+        u = torch.tensor(rng.standard_normal(g.nodes_per_dim + (g.ndim,)), device=device)
+        f = kernels.apply_k_cached(u, S, g)
+        torch.cuda.synchronize()
+        assert S.dtype == torch.float64 and f.dtype == torch.float64
+        torch.testing.assert_close(S, kernels.cached_stencil_f64_plain(Ke, g),
+                                   rtol=0, atol=0)
+        assert _rel(f, kernels.apply_k_cached_f64_plain(u, S, g)) < 1e-12
+    assert kernels.launches["cached_stencil_f64"] == len(stacks)
+    assert kernels.launches["apply_k_cached_f64"] == len(stacks)
     assert kernels.launches["cached_stencil"] == kernels.launches["apply_k_cached_f32"] == 0
 
 
@@ -265,26 +300,43 @@ def test_elem_f64_partials_only_on_block_faces(device, prob_path, dims):
 
 
 def test_kernels_refuse_f64_hierarchy(device):
-    """Kernels on for a float64 CUDA hierarchy raise rather than run the
-    plain ops on the card; kernels off is an explicit choice of them."""
-    cfg = load_problem(CASES[1][0])
-    for use_kernels in (True, "auto"):
-        with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-            ground_truth_topopt(cfg, dims=(8, 4, 4), max_iter=1,
-                                multigrid_levels=1, dtype=torch.float64,
-                                device=device, use_kernels=use_kernels,
-                                log=lambda s: None)
-    prob, grid = problem_from_config(cfg, dims=(8, 4, 4), dtype=torch.float64,
+    """A float64 CUDA hierarchy with kernels on (explicit or "auto") runs
+    its level 0 and its cached levels through the float64 kernels and
+    agrees with the plain ops (kernels off, an explicit choice of them)
+    to 1e-10; what the kernels refuse is a degree-2 grid under an explicit
+    ``use_kernels=True`` ("auto" takes the plain applies there)."""
+    cfg = load_problem(CASES[3][0])
+    prob, grid = problem_from_config(cfg, dims=(16, 8, 8), dtype=torch.float64,
                                      device=device)
-    settings = mg.MGSolverSettings(num_levels=1, smoother="chebyshev",
-                                   use_kernels=True)
+    settings = mg.MGSolverSettings(num_levels=2, smoother="chebyshev", use_kernels=True)
     rho = torch.full(grid.dims, 0.5, dtype=torch.float64, device=device)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-        mg.make_mg_solver(prob, settings)(rho)
     kernels.reset_launches()
-    u, _ = mg.make_mg_solver(
+    u_on, _ = mg.make_mg_solver(prob, settings)(rho)
+    torch.cuda.synchronize()
+    assert kernels.launches["apply_k_fine_f64"] > 0
+    assert kernels.launches["apply_k_cached_f64"] > 0
+    assert kernels.launches["cached_stencil_f64"] == 1
+    assert kernels.launches["apply_k_fine_f32"] == kernels.launches["apply_k_cached_f32"] == 0
+    kernels.reset_launches()
+    u_off, _ = mg.make_mg_solver(
         prob, dataclasses.replace(settings, use_kernels=False))(rho)
-    assert u.dtype == torch.float64 and bool(torch.isfinite(u).all())
+    assert kernels.launches == {name: 0 for name in kernels.launches}
+    f = prob.force.reshape(-1)
+    c_on, c_off = float(f @ u_on.reshape(-1)), float(f @ u_off.reshape(-1))
+    assert abs(c_on - c_off) <= 1e-10 * abs(c_off)
+    res = ground_truth_topopt(cfg, dims=(16, 8, 8), max_iter=2, multigrid_levels=2,
+                              dtype=torch.float64, device=device, use_kernels="auto",
+                              log=lambda s: None)
+    assert np.isfinite(res.history).all()
+    cfg2 = dataclasses.replace(load_problem(CASES[0][0]), order_fem=(2, 2))
+    prob2, grid2 = problem_from_config(cfg2, dims=(6, 2), device=device)
+    rho2 = torch.full(grid2.dims, 0.5, dtype=torch.float64, device=device)
+    with pytest.raises(ValueError, match="degree-1"):
+        mg.make_mg_solver(prob2, settings)(rho2)
+    kernels.reset_launches()
+    u2, _ = mg.make_mg_solver(prob2, dataclasses.replace(
+        settings, use_kernels="auto", cg_iter=2000))(rho2)
+    assert bool(torch.isfinite(u2).all())
     assert kernels.launches == {name: 0 for name in kernels.launches}
 
 
@@ -416,6 +468,14 @@ def test_profile_oc_small(device, capsys):
     out = capsys.readouterr().out
     assert "[on] traced chunk (2 steps, per step) wall" in out
     assert "graph captures 1" in out
+    profile_oc.main(["--grid", "[16,8,8]", "--mgl", "2", "--steps", "1",
+                     "--kernels", "on", "--x64"])
+    assert "[on] s/OC-iter with synced sections" in capsys.readouterr().out
+    profile_oc.main(["--grid", "[16,8,8]", "--mgl", "2", "--steps", "1",
+                     "--kernels", "on", "--optim", "LBFGS"])
+    out = capsys.readouterr().out
+    assert "[on] s per L-BFGS iteration with synced sections" in out
+    assert "objective evaluations" in out
 
 
 def test_profile_neural_small(device, capsys):
@@ -476,3 +536,16 @@ def test_neural_two_steps_on_card(device, tmp_path, fine_kernel, fine32, fine64)
     assert abs(on.history[0] - off.history[0]) < 1e-4 * abs(off.history[0])
     for f in ("on.vtr", "on_densities.npy", "on.npz", "on_history.json"):
         assert (tmp_path / f).exists(), f
+
+
+def test_lbfgs_repeats_bitwise_on_card(device):
+    """The smoothing filter's gradient gathers (no atomics) and the
+    coarsest dense K adds one local node per call, so two L-BFGS runs from
+    one start take the same line searches to the same bits."""
+    cfg = load_problem("problems/3d/cantilever_flexion.json")
+    kw = dict(dims=(32, 16, 16), max_iter=6, multigrid_levels=2, optimizer="LBFGS",
+              device="cuda", log=lambda s: None)
+    a = ground_truth_topopt(cfg, **kw)
+    b = ground_truth_topopt(cfg, **kw)
+    assert a.history == b.history and a.evaluations == b.evaluations
+    assert np.array_equal(a.densities, b.densities)

@@ -136,8 +136,9 @@ def _settings(mod, nl, **kw):
 @pytest.mark.parametrize("use_kernels", [False, True], ids=["plain", "kernels"])
 @pytest.mark.parametrize("prob_path,dims,nl", CASES, ids=IDS)
 def test_mgpcg_solve_f64_matches_jax(prob_path, dims, nl, use_kernels):
-    """Float64 end to end. With kernels on, CPU tensors still take the
-    plain ops (on CUDA tensors a float64 hierarchy raises instead)."""
+    """Float64 end to end. With kernels on, the levels go through the
+    float64 kernel wrappers (their plain twins on CPU tensors: the node
+    stencil on the cached levels)."""
     pj, pt, grid = _problems(prob_path, dims)
     rho = np.random.default_rng(4).uniform(0.05, 1.0, grid.dims)
     sj = jmg.make_mg_solver(pj, _settings(jmg, nl))

@@ -52,13 +52,16 @@ def _problems(prob_path, dims):
 
 
 def test_port_imports_without_jax():
-    """The port, its CLIs (the eval ones too) and chip_smoke's imports
-    load neither JAX, optax nor any module of the JAX package."""
+    """The port, its CLIs (the eval ones too), the L-BFGS, calculus and
+    memory modules and chip_smoke's imports load neither JAX, optax nor any
+    module of the JAX package."""
     code = ("import sys, ndr_tpu_torch.training.train_xdg, "
             "ndr_tpu_torch.training.train_voxelfem, ndr_tpu_torch.fem.kernels, "
             "ndr_tpu_torch.utils.profile_oc, ndr_tpu_torch.utils.profile_neural, "
             "ndr_tpu_torch.eval.evaluate, ndr_tpu_torch.eval.eval_voxelfem, "
             "ndr_tpu_torch.eval.eval_fourfeat, ndr_tpu_torch.eval.fourfeat_utils, "
+            "ndr_tpu_torch.ops.lbfgs, ndr_tpu_torch.ops.calculus, "
+            "ndr_tpu_torch.utils.memory, "
             "chip_smoke; "
             "chip_smoke.port_modules(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -107,6 +110,23 @@ def test_plain_op_matches_jax(prob_path, dims, op):
     assert out.dtype == torch.float64 and tuple(out.shape) == ref.shape
     err = np.abs(out.numpy() - ref).max() / np.abs(ref).max()
     assert err < 1e-12, err
+
+
+@pytest.mark.parametrize("prob_path,dims", CASES)
+def test_dense_assembly_matches_jax(prob_path, dims):
+    """The coarsest level's dense K, assembled one local node at a time
+    (no two adds of one call share a target), against the JAX package's
+    single scatter-add over all elements: float64, summed in another
+    order, within 1e-14 of max|K|."""
+    from ndr_tpu.fem import solvers as jsolvers
+    from ndr_tpu_torch.fem import solvers as tsolvers
+
+    grid = j_problem_from_config(load_problem(prob_path), dims=dims, dtype=jnp.float64)[1]
+    d = grid.nodes_per_elem * grid.ndim
+    ke = np.random.default_rng(5).standard_normal(grid.dims + (d, d))
+    kj = np.asarray(jsolvers.assemble_dense_k_traced(jnp.asarray(ke), grid))
+    kt = tsolvers.assemble_dense_k_traced(torch.tensor(ke), _port_grid(grid)).numpy()
+    np.testing.assert_allclose(kt, kj, rtol=0, atol=1e-14 * np.abs(kj).max())
 
 
 @pytest.mark.parametrize("prob_path,dims", [CASES[0], CASES[1]])
