@@ -58,7 +58,23 @@ each with the launch counters set to 0 just before and read just after:
  15. a degree-2 grid (cantilever 32x16x16, orderFEM [2, 2, 2]), whose
      block-Jacobi PCG takes the plain applies (every kernel counter 0), and
      the Langelaar filter at 192x96x96 in float64 on the card against the
-     same call on the CPU.
+     same call on the CPU;
+ 16. periodic homogenization in float64 (``fem.homogenization``, the six
+     cell problems in one batched block-Jacobi CG whose periodic apply
+     launches ``apply_k_fine_f64`` once per cell problem): the periodic
+     apply through both fine kernels against their twins at 64^3; a
+     laminate at 64^3 held to its closed-form (Backus) tensor; a random
+     cell at 32^3 card against CPU and its tensor gradient against a
+     centred finite difference; a random cell at 64^3 timed;
+ 17. ``design_microstructure`` at 64^3: 10 Adam steps toward the
+     laminate's tensor;
+ 18. the continual-learning trainer (``train_cl``) through its CLI at the
+     north star's width: bridge 192x96x96, mgl=3, 1024/512x4, two tasks of
+     4 steps with gated activations and forgetting, kernels on, then one
+     step kernels off, held together at step 0;
+ 19. the model zoo (SIREN 256x3 on a 192x96 grid, the CNN and deconv
+     generators at their default configs) in float64, forward and backward
+     on the card against the CPU.
 
 Any failed check exits non-zero. The last line of standard output is one
 JSON object naming the device; the line before it, the card's name and
@@ -162,6 +178,26 @@ DEGREE2_GRID = (32, 16, 16)
 DEGREE2_ITERS = 3
 DEGREE2_CG_CAP = 2000   # ground_truth_topopt's cap for block-Jacobi PCG
 TOL_LANGELAAR = 1e-12
+# periodic homogenization (path 16): unit cells of an isotropic material,
+# E = 1, nu = 0.3 (tests/test_homogenization.py); 64^3 cells have 262,144
+# periodic nodes, 786k DoFs per cell problem, six problems
+HOM_GRID, HOM_CPU_GRID = (64, 64, 64), (32, 32, 32)
+HOM_E, HOM_NU = 1.0, 0.3
+HOM_CAP = 2000           # design_microstructure's CG cap (solve_cell_problems)
+HOM_TRACE_ITERS = 20
+HOM_TOL = 1e-9           # design_microstructure's CG tolerance
+HOM_TOL_LAMINATE = 1e-10
+HOM_TOL_CPU = 1e-10      # card against CPU at 32^3
+TOL_BACKUS = 1e-6        # the laminate against its closed form (JAX's test)
+TOL_SYMMETRIC = 1e-9
+TOL_HOM_CPU = 1e-9       # of max|Eh|
+FD_H, FD_TOL, TOL_FD = 1e-6, 1e-12, 2e-5   # tests/test_homogenization.py's FD check
+DESIGN_STEPS, DESIGN_LR = 10, 0.3
+# continual learning at the north star's width (path 18)
+CL_ITERS, CL_TASK_END = 4, 2
+CL_RE = re.compile(r"Task (\d+) step (\d+): compliance (\S+), cg_iters (\d+)")
+TOL_ZOO = 1e-12          # float64 card against CPU, forward and gradients
+ZOO_SIREN_GRID = (192, 96)
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -211,17 +247,21 @@ def check(cond: bool, msg: str):
 def port_modules() -> types.SimpleNamespace:
     """Every module of the port this script uses (imported here, not at the
     top, so that the script fails cleanly where the port is missing)."""
+    from ndr_tpu_torch import grid, models
     from ndr_tpu_torch.eval import eval_fourfeat, eval_voxelfem
-    from ndr_tpu_torch.fem import kernels, multigrid, simulator
+    from ndr_tpu_torch.fem import (element, homogenization, kernels, microstructure,
+                                   multigrid, simulator)
     from ndr_tpu_torch.io import problem
     from ndr_tpu_torch.ops import filters
-    from ndr_tpu_torch.training import train_voxelfem, train_xdg
+    from ndr_tpu_torch.training import neural, train_cl, train_voxelfem, train_xdg
     from ndr_tpu_torch.utils import profile_oc, torch_setup
     return types.SimpleNamespace(kernels=kernels, mg=multigrid, simulator=simulator,
                                  problem=problem, train_voxelfem=train_voxelfem,
                                  train_xdg=train_xdg, torch_setup=torch_setup,
                                  eval_fourfeat=eval_fourfeat, eval_voxelfem=eval_voxelfem,
-                                 filters=filters, profile_oc=profile_oc)
+                                 filters=filters, profile_oc=profile_oc, grid=grid,
+                                 element=element, hom=homogenization, ms=microstructure,
+                                 train_cl=train_cl, models=models, neural=neural)
 
 
 def gpu_line() -> str:
@@ -261,6 +301,21 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fine_cost(grid, dtype) -> tuple:
+    """(bytes, operations) of one fine apply: u, young and f once each; the
+    operations of the kernels' design, the reflection basis (both types):
+    the two transforms (in 3-D the lower node plane's is carried from the
+    previous element), 2^N N x N blocks, the young scale fused with the
+    carried forces."""
+    b = torch.finfo(dtype).bits // 8
+    nn, ne, N = grid.num_nodes, grid.num_elements, grid.ndim
+    npe = grid.nodes_per_elem
+    d = npe * N
+    L = npe.bit_length() - 1
+    flops = ne * (2 * d * L - (d if N == 3 else 0) + 2 * npe * N * N + 2 * d)
+    return 2 * N * nn * b + ne * b, flops
 
 
 def stencil_from_blocks(kernels, grid, block, dtype):
@@ -495,16 +550,10 @@ def phase_kernels(m):
                 del S
                 return K, args[0].reshape(-1)
 
-            npe = grid.nodes_per_elem
-            L = npe.bit_length() - 1
-            # operations of the kernels' design, the reflection basis (both
-            # types): the two transforms (in 3-D the lower node plane's is
-            # carried from the previous element), 2^N N x N blocks, the
-            # young scale fused with the carried forces; and of the dense
-            # K0 contraction (with the young scale) that it replaced
+            # and of the dense K0 contraction (with the young scale) that
+            # the reflection design replaced
             dense_flops = ne * (2 * d * d + d)
-            flops = ne * (2 * d * L - (d if N == 3 else 0) + 2 * npe * N * N + 2 * d)
-            io_bytes = 2 * N * nn * b + ne * b
+            io_bytes, flops = fine_cost(grid, dt)
 
             run(name, getattr(kernels, name), kernels.apply_k_fine_plain, args, grid,
                 tol, f"fine {dims}", cost=(io_bytes, flops, dt) if timed else None,
@@ -849,6 +898,257 @@ def langelaar(m) -> str:
     return line
 
 
+def unit_cell(m, dims):
+    """(grid, material, K0 as a float64 CUDA tensor) of a unit cell of the
+    isotropic material of path 16."""
+    grid = m.grid.make_grid(dims, [[0] * len(dims), [1] * len(dims)])
+    mat = m.element.IsotropicMaterial(HOM_E, HOM_NU, grid.ndim)
+    K0 = m.element.element_stiffness_matrix(tuple([1] * grid.ndim), grid.stretchings, mat)
+    return grid, mat, torch.tensor(K0, device="cuda")
+
+
+def periodic_kernel_checks(m, records, worst):
+    """Path 16 (a): both fine kernels against their twin on the expanded
+    (65^3-node) field of a 64^3 cell, and the periodic apply through them
+    against the plain periodic apply; each timed beside its twin at that
+    shape (added to the kernels' records)."""
+    import numpy as np
+
+    hom, kernels = m.hom, m.kernels
+    grid, _, K0 = unit_cell(m, HOM_GRID)
+    rng = np.random.default_rng(5)
+    u = torch.tensor(rng.standard_normal(grid.dims + (3,)), device="cuda")
+    rho = torch.tensor(rng.uniform(0.3, 1.0, grid.dims), device="cuda")
+    for name, dtype, tol in (("apply_k_fine_f64", torch.float64, TOL_F64),
+                             ("apply_k_fine_f32", torch.float32, TOL_F32)):
+        ud, rd, kd = u.to(dtype), rho.to(dtype), K0.to(dtype)
+        full = hom.periodic_expand(ud, 3)
+        kernel = getattr(kernels, name)
+        out = kernel(full, rd, kd, grid)
+        ref = kernels.apply_k_fine_plain(full, rd, kd, grid)
+        abs_err, rel = errors(out, ref)
+        per = hom.periodic_apply_k(ud, rd, kd, grid, use_kernels=True)
+        per_ref = hom.periodic_apply_k(ud, rd, kd, grid, use_kernels=False)
+        rel_per = errors(per, per_ref)[1]
+        check(rel <= tol and rel_per <= tol,
+              f"{name} at the periodic {HOM_GRID} cell: rel err {rel:.3e}, periodic "
+              f"apply {rel_per:.3e} > {tol:g}")
+        worst[name] = max(worst[name], abs_err)
+        nbytes, flops = fine_cost(grid, dtype)
+        ms = time_ms(lambda: kernel(full, rd, kd, grid))
+        plain_ms = time_ms(lambda: kernels.apply_k_fine_plain(full, rd, kd, grid))
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        label = f"periodic {HOM_GRID} ({grid.nodes_per_dim} nodes)"
+        records.setdefault(name, []).append(dict(
+            shape=label, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+            bound_by=b_by, bytes=nbytes, flops=flops))
+        print(f"{name:22s} {label:30s} max|d| {abs_err:.3e}  rel {rel:.3e}; periodic "
+              f"apply with/without kernels rel {rel_per:.3e}\n    kernel {ms:.4f} ms; "
+              f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%} of it); plain {plain_ms:.4f} ms")
+
+
+def laminate_tensor(lam: float, mu: float):
+    """Closed-form (Backus) tensor entries of the path-16 laminate (layers
+    normal to x, half the cell at density 0.25): C11 = <1/M>^-1 with
+    M = lam + 2 mu, C12 = C13 = <lam/M> C11, the xy and xz shears
+    <1/mu>^-1, the yz shear <mu>."""
+    phases = ((0.5, 0.25), (0.5, 1.0))
+
+    def avg(f):
+        return sum(frac * f(s * lam, s * mu) for frac, s in phases)
+
+    C11 = 1.0 / avg(lambda l, m: 1.0 / (l + 2 * m))
+    C12 = avg(lambda l, m: l / (l + 2 * m)) * C11
+    return C11, C12, 1.0 / avg(lambda l, m: 1.0 / m), avg(lambda l, m: m)
+
+
+def homogenization_path(m):
+    """Path 16 (b)-(d) in float64; returns (summary line, the laminate's
+    tensor, the 64^3 cell's grid and material)."""
+    import numpy as np
+
+    hom = m.hom
+    grid, mat, K0 = unit_cell(m, HOM_GRID)
+
+    rho_lam = torch.ones(grid.dims, dtype=torch.float64, device="cuda")
+    rho_lam[: grid.dims[0] // 2] = 0.25
+    Eh_lam, _, it_lam = hom.homogenize(rho_lam, grid, mat, K0, tol=HOM_TOL_LAMINATE,
+                                       max_iter=HOM_CAP)
+    E = Eh_lam.cpu().numpy()
+    C11, C12, G, G_in = laminate_tensor(*mat.lame)
+    got = [E[0, 0], E[0, 1], E[0, 2], E[4, 4], E[5, 5], E[3, 3]]
+    want = [C11, C12, C12, G, G, G_in]
+    rel_b = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    asym = float(np.abs(E - E.T).max())
+    print(f"laminate {HOM_GRID}: CG iterations {it_lam.tolist()}; C11, C12, C13, "
+          f"G_xz, G_xy, G_yz {got} against the closed form {want}: worst rel {rel_b:.3e}; "
+          f"max|Eh - Eh^T| {asym:.3e}")
+    check(int(it_lam.max()) < HOM_CAP, f"laminate: CG reached the cap {HOM_CAP}")
+    check(rel_b < TOL_BACKUS and asym < TOL_SYMMETRIC,
+          f"laminate differs from its closed form: rel {rel_b:.3e}, asymmetry {asym:.3e}")
+
+    g32, m32, K32 = unit_cell(m, HOM_CPU_GRID)
+    rng = np.random.default_rng(0)
+    r32 = rng.uniform(0.3, 1.0, g32.dims)
+    Eh_c, _, it_c = hom.homogenize(torch.tensor(r32, device="cuda"), g32, m32, K32,
+                                   tol=HOM_TOL_CPU, max_iter=HOM_CAP)
+    t0 = time.perf_counter()
+    Eh_h, _, it_h = hom.homogenize(torch.tensor(r32), g32, m32, K32.cpu(), tol=HOM_TOL_CPU,
+                                   max_iter=HOM_CAP)
+    t_cpu = time.perf_counter() - t0
+    err = float((Eh_c.cpu() - Eh_h).abs().max() / Eh_h.abs().max())
+    print(f"random cell {HOM_CPU_GRID} tol {HOM_TOL_CPU:g}: Eh card vs CPU rel {err:.3e}; "
+          f"CG iterations card {it_c.tolist()}, CPU {it_h.tolist()} (CPU run {t_cpu:.1f} s)")
+    check(err <= TOL_HOM_CPU, f"homogenization card vs CPU: rel {err:.3e}")
+    d = rng.standard_normal(g32.dims)
+    d = torch.tensor(d / np.linalg.norm(d), device="cuda")
+    rho0 = torch.tensor(r32, device="cuda")
+    _, dEh, _ = hom.homogenize(rho0, g32, m32, K32, tol=FD_TOL, max_iter=HOM_CAP)
+    fd = (hom.homogenize(rho0 + FD_H * d, g32, m32, K32, tol=FD_TOL, max_iter=HOM_CAP)[0]
+          - hom.homogenize(rho0 - FD_H * d, g32, m32, K32, tol=FD_TOL,
+                           max_iter=HOM_CAP)[0]) / (2 * FD_H)
+    an = torch.einsum("xyzst,xyz->st", dEh, d)
+    fd_err = float((an - fd).abs().max())
+    fd_tol = TOL_FD * max(1.0, float(fd.abs().max()))
+    print(f"dEh/drho along a random unit direction against a centred difference "
+          f"(h {FD_H:g}, tol {FD_TOL:g}): max|d| {fd_err:.3e} (bound {fd_tol:.3e})")
+    check(fd_err <= fd_tol, f"homogenized tensor gradient vs FD: {fd_err:.3e}")
+
+    rho64 = torch.tensor(np.random.default_rng(0).uniform(0.3, 1.0, grid.dims),
+                         device="cuda")
+    launched = m.kernels.launches["apply_k_fine_f64"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    Eh, dEh, iters = hom.homogenize(rho64, grid, mat, K0, tol=HOM_TOL, max_iter=HOM_CAP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_launch = m.kernels.launches["apply_k_fine_f64"] - launched
+    check(bool(torch.isfinite(Eh).all() and torch.isfinite(dEh).all())
+          and dEh.shape == grid.dims + (6, 6), "homogenization at 64^3: not finite")
+    check(int(iters.max()) < HOM_CAP, f"random cell {HOM_GRID}: CG iterations "
+                                      f"{iters.tolist()} reached the cap {HOM_CAP}")
+    check(n_launch > 0, "homogenization at 64^3 launched no apply_k_fine_f64")
+    # where a CG iteration's time goes: a traced window of HOM_TRACE_ITERS
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        hom.solve_cell_problems(rho64, grid, mat, K0, tol=HOM_TOL, max_iter=HOM_TRACE_ITERS)
+        torch.cuda.synchronize()
+        t_trace = time.perf_counter() - t0
+    busy, n_ops, top, port = m.profile_oc.device_summary(prof)
+    fine = sum(t for name, t, _ in port)
+    line = (f"homogenization float64 random cell {HOM_GRID} tol {HOM_TOL:g}: "
+            f"{wall:.4f} s per homogenization (cell solves + Eh + dEh, card "
+            f"synchronized), CG iterations per cell problem {iters.tolist()} (cap "
+            f"{HOM_CAP}), apply_k_fine_f64 launches {n_launch}, peak {peak:.2f} GiB; "
+            f"traced {HOM_TRACE_ITERS} CG iterations: wall {1e3 * t_trace:.1f} ms, device "
+            f"busy {1e3 * busy:.1f} ms (fine kernel {1e3 * fine:.1f} ms), {n_ops} device "
+            f"ops, idle share {1 - busy / t_trace:.3f}; laminate iterations "
+            f"{it_lam.tolist()}, worst rel to Backus {rel_b:.3e}; {HOM_CPU_GRID} card vs "
+            f"CPU {err:.3e}")
+    print("  top device ops of the traced window:",
+          ", ".join(f"{name[:40]} {1e3 * t:.2f} ms x{c}" for name, t, c in top[:6]))
+    print(line)
+    return line, Eh_lam, grid, mat
+
+
+def design_path(m, target, grid, mat):
+    """Path 17: design_microstructure at 64^3 from rho0 ~ U(0.3, 0.7),
+    DESIGN_STEPS Adam steps toward ``target``; returns the summary line."""
+    import numpy as np
+
+    rho0 = torch.tensor(np.random.default_rng(1).uniform(0.3, 0.7, grid.dims),
+                        device="cuda")
+    launched = m.kernels.launches["apply_k_fine_f64"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = m.ms.design_microstructure(target, grid, mat, rho0=rho0, steps=DESIGN_STEPS,
+                                     learning_rate=DESIGN_LR, log_every=1)
+    torch.cuda.synchronize()
+    s_step = (time.perf_counter() - t0) / DESIGN_STEPS
+    # each batched CG iteration applies all six fields (a frozen one too),
+    # and so does the initial residual: iterations of the longest problem
+    cg = (m.kernels.launches["apply_k_fine_f64"] - launched) / (6 * DESIGN_STEPS) - 1
+    h = res.history
+    check(len(h) == DESIGN_STEPS and all(math.isfinite(x) for x in h) and h[-1] < h[0],
+          f"design_microstructure: history {h}")
+    check(res.rho.shape == grid.dims and np.isfinite(res.rho).all(), "design: rho")
+    line = (f"design_microstructure {grid.dims} float64, {DESIGN_STEPS} Adam steps at lr "
+            f"{DESIGN_LR}: {s_step:.4f} s per step, {cg:.1f} CG iterations per step (the "
+            f"longest cell problem's), distance {h[0]:.4e} -> {h[-1]:.4e}")
+    print(line)
+    return line
+
+
+def cl_run(m, jid: str, extra):
+    """One ``train_cl`` CLI run on the bridge at the north star's width:
+    every step's compliance finite and positive, cg_iters below the cap,
+    the per-task densities (.npy, .vtr) and the history written. Returns
+    (the log's (task, step, compliance, cg_iters), the CLI's aux)."""
+    argv = ["--prob", BRIDGE, "--grid", json.dumps(list(GRID)), "--v0", "0.4",
+            "--mgl", "3", "--es", "1024", "--nn", "512", "--nl", "4", "--log-every", "1",
+            "--device", "cuda", "--out", OUT_DIR, "--jid", jid, *extra]
+    with captured_stderr() as buf:
+        _, histories, aux = m.train_cl.main(argv)
+    lines = [(int(t), int(i), float(c), int(n)) for t, i, c, n in CL_RE.findall(buf.getvalue())]
+    check(len(lines) == sum(len(h) for h in histories) > 0, f"{jid}: step lines {lines}")
+    for t, i, c, n in lines:
+        check(math.isfinite(c) and c > 0, f"{jid} task {t} step {i}: compliance {c}")
+        check(n < CG_CAP, f"{jid} task {t} step {i}: cg_iters {n} hit the cap {CG_CAP}")
+    for t in range(len(histories)):
+        for f in (f"_task{t}_densities.npy", f"_task{t}.vtr"):
+            check(os.path.exists(os.path.join(OUT_DIR, jid + f)), f"artifact {jid}{f} missing")
+    check(os.path.exists(os.path.join(OUT_DIR, f"{jid}_history.json")),
+          f"artifact {jid}_history.json missing")
+    return lines, aux
+
+
+def zoo_path(m):
+    """Path 19: SIREN (256x3) on a 192x96 coordinate grid, the CNN
+    generator and the deconv generator at their default configs, float64:
+    forward and the gradient of a random weighting of the output on the
+    card against the CPU. Returns the summary line."""
+    import copy
+
+    models = m.models
+    gen = torch.Generator().manual_seed(0)
+    f64 = torch.float64
+    coords = m.neural.get_mgrid(ZOO_SIREN_GRID, dtype=f64, device="cpu")
+    z = torch.randn(675, 1, generator=gen, dtype=f64)
+    cases = (("siren", models.init_siren(models.SirenConfig(), gen, f64, "cpu"),
+              lambda mod, dev: models.siren_apply(mod, coords.to(dev))),
+             ("cnn", models.init_cnn(models.CNNConfig(), gen, f64, "cpu"),
+              lambda mod, dev: models.cnn_apply(mod)),
+             ("deconv", models.init_deconv_generator(models.DeconvConfig(), gen, f64, "cpu"),
+              lambda mod, dev: models.deconv_generator_apply(mod, z.to(dev))))
+    out = []
+    for name, model, fwd in cases:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            mod = copy.deepcopy(model).to(dev)
+            t0 = time.perf_counter()
+            y = fwd(mod, dev)
+            w = torch.randn(y.shape, generator=torch.Generator().manual_seed(1), dtype=f64)
+            (y * w.to(dev)).sum().backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            runs[dev] = (y.detach().cpu(), {k: p.grad.cpu() for k, p in mod.named_parameters()},
+                         time.perf_counter() - t0)
+        (yc, gc, _), (yg, gg, wall) = runs["cpu"], runs["cuda"]
+        err_y = float((yg - yc).abs().max() / yc.abs().max())
+        err_g = max(float((gg[k] - gc[k]).abs().max() / gc[k].abs().max().clamp_min(1e-300))
+                    for k in gc)
+        print(f"zoo {name}: output {tuple(yc.shape)}, card vs CPU forward rel {err_y:.3e}, "
+              f"gradients worst rel {err_g:.3e}; card forward+backward {wall:.4f} s (first "
+              f"call)")
+        check(err_y <= TOL_ZOO and err_g <= TOL_ZOO,
+              f"zoo {name} card vs CPU: forward {err_y:.3e}, gradients {err_g:.3e}")
+        out.append(f"{name} {err_y:.1e}/{err_g:.1e}")
+    return "model zoo float64 card vs CPU (forward/gradients): " + ", ".join(out)
+
+
 def agree(label: str, a: float, b: float):
     rel = abs(a - b) / abs(b)
     print(f"{label}: {a} vs {b}, rel {rel:.3e}")
@@ -1161,10 +1461,53 @@ def main():
         timings.append(f"classic degree 2 {DEGREE2_GRID}: s/OC-iter {t_d2:.4f}, cg_iters "
                        f"{[n for *_, n in d2]} (block-Jacobi PCG), peak {peak:.2f} GiB")
         timings.append(langelaar(m))
+
+        print(f"== 19. periodic homogenization, float64: the fine kernels at a {HOM_GRID} "
+              f"cell; laminate {HOM_GRID}; random {HOM_CPU_GRID} card vs CPU and FD; "
+              f"random {HOM_GRID} timed")
+        periodic_kernel_checks(m, records, worst)
+        (line, Eh_lam, hgrid, hmat), counts, _ = run_path(
+            m, "homogenization", lambda: homogenization_path(m), ("apply_k_fine_f64",))
+        total = {k: total[k] + counts[k] for k in total}
+        timings.append(line)
+
+        print(f"== 20. design_microstructure {HOM_GRID}: {DESIGN_STEPS} Adam steps toward "
+              f"the laminate's tensor")
+        line, counts, peak = run_path(m, "design", lambda: design_path(m, Eh_lam, hgrid, hmat),
+                                      ("apply_k_fine_f64",))
+        total = {k: total[k] + counts[k] for k in total}
+        timings.append(line + f", peak {peak:.2f} GiB")
+
+        print(f"== 21. train_cl: {BRIDGE} {GRID} mgl=3 1024/512x4, {CL_TASK_END} tasks x "
+              f"{CL_ITERS} steps, --gate-rate 0.2 --forget-rate 0.1, kernels on; 1 step off")
+        (cl_on, aux_on), counts, peak = run_path(
+            m, "train_cl on", lambda: cl_run(
+                m, "cl_on", ["--task-interval", "1.5", "--task-end", str(CL_TASK_END),
+                             "--iter", str(CL_ITERS), "--gate-rate", "0.2",
+                             "--forget-rate", "0.1", "--kernels", "on"]),
+            ("apply_k_fine_f32", "apply_k_cached_f32", "cached_stencil", "apply_k_fine_f64"))
+        total = {k: total[k] + counts[k] for k in total}
+        check(len(cl_on) == CL_TASK_END * CL_ITERS, f"train_cl on: {len(cl_on)} steps")
+        (cl_off, _), counts, peak_off = run_path(
+            m, "train_cl off", lambda: cl_run(
+                m, "cl_off", ["--task-end", "1", "--iter", "1", "--gate-rate", "0.2",
+                              "--forget-rate", "0.1", "--kernels", "off"]), ())
+        check(not any(counts.values()), f"train_cl --kernels off launched kernels: {counts}")
+        agree("train_cl task 0 step-0 compliance on/off", cl_on[0][2], cl_off[0][2])
+        per_task = [statistics.median(s[1:]) for s in aux_on["step_seconds"]]
+        timings.append(f"train_cl {GRID} mgl=3 1024/512x4 sigmas {aux_on['sigmas']}: s/step "
+                       f"per task (median of steps after the first) {per_task}, cg_iters "
+                       f"{[n for *_, n in cl_on]}, peak {peak:.2f} GiB; kernels off step 0 "
+                       f"{cl_off[0][2]:.6f} (peak {peak_off:.2f} GiB)")
+        print(timings[-1])
+
+        print("== 22. the model zoo in float64: card against CPU")
+        line, counts, _ = run_path(m, "model zoo", lambda: zoo_path(m), ())
+        timings.append(line)
     finally:
         shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    print("== 19. summary")
+    print("== 23. summary")
     print("launches over the paths:", total)
     for name, n in total.items():
         check(n > 0, f"{name} was launched by no path")

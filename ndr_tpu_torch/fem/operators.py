@@ -67,6 +67,26 @@ def _scatter_forces(F: torch.Tensor, grid: Grid) -> torch.Tensor:
     return out
 
 
+def gather_element_displacements(u: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """Nodal vectors of every element: (dims..., nodes_per_elem, N),
+    local nodes in C order (the JAX package's layout). ``u`` may carry
+    leading batch axes before its node axes."""
+    lead = (slice(None),) * (u.dim() - grid.ndim - 1)
+    return torch.stack([u[lead + _elem_slice(grid, o)]
+                        for o in local_node_offsets(grid)], dim=-2)
+
+
+def scatter_element_forces(fe: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """Scatter-add per-element nodal forces (dims..., nodes_per_elem, N)
+    to a node field nodes_per_dim + (N,), local node by local node (leading
+    batch axes of ``fe`` stay leading axes of the field)."""
+    lead = fe.shape[:fe.dim() - grid.ndim - 2]
+    out = fe.new_zeros(lead + grid.nodes_per_dim + (grid.ndim,))
+    for j, o in enumerate(local_node_offsets(grid)):
+        out[(Ellipsis,) + _elem_slice(grid, o) + (slice(None),)] += fe[..., j, :]
+    return out
+
+
 def apply_k(
     u: torch.Tensor,
     young: torch.Tensor,

@@ -122,3 +122,60 @@ def conjugate_gradient(
         r_minv_r_old = r_minv_r
         i += 1
     return x, i
+
+
+def conjugate_gradient_batched(
+    apply_a: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    tol: float = 1e-5,
+    max_iter: int = 1000,
+    precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """S independent systems at once (leading axis S of ``b`` and ``x0``):
+    :func:`conjugate_gradient` mapped over that axis, as ``jax.vmap`` maps
+    ``ndr_tpu.fem.solvers.conjugate_gradient``.
+
+    ``apply_a`` and ``precond`` act on the whole batch. Each column has its
+    own alpha, beta, stop test and count; a column whose stop test holds is
+    frozen (its x, r, d and count stop changing; a column with b = 0 starts
+    frozen), and the loop runs while any column is active and below
+    ``max_iter``. The branch computed for a frozen column may hold NaN
+    (0/0 once its residual is exactly zero); ``torch.where`` keeps it out of
+    the kept values. One host read per iteration: is any column active?
+
+    Returns (x, iterations per column, shape (S,))."""
+    if precond is None:
+        precond = lambda r: r
+    S = b.shape[0]
+    col = (S,) + (1,) * (b.dim() - 1)
+
+    def dots(a, c):
+        return torch.linalg.vecdot(a.reshape(S, -1), c.reshape(S, -1))
+
+    thresh = tol * tol * dots(b, b)
+    x = x0
+    r = b - apply_a(x0)
+    d = torch.zeros_like(b)
+    rmr_old = torch.ones(S, dtype=b.dtype, device=b.device)
+    iters = torch.zeros(S, dtype=torch.int64, device=b.device)
+    # an active column has taken exactly k steps: the i < max_iter and
+    # i == 0 tests of the unbatched loop are tests of k
+    k = 0
+    while k < max_iter:
+        active = dots(r, r) > thresh
+        if not bool(active.any()):
+            break
+        s = precond(r)
+        rmr = dots(r, s)
+        d_new = s if k == 0 else s + (rmr / rmr_old).reshape(col) * d
+        ad = apply_a(d_new)
+        alpha = (rmr / dots(d_new, ad)).reshape(col)
+        keep = active.reshape(col)
+        x = torch.where(keep, x + alpha * d_new, x)
+        r = torch.where(keep, r - alpha * ad, r)
+        d = torch.where(keep, d_new, d)
+        rmr_old = torch.where(active, rmr, rmr_old)
+        iters += active
+        k += 1
+    return x, iters

@@ -549,3 +549,78 @@ def test_lbfgs_repeats_bitwise_on_card(device):
     b = ground_truth_topopt(cfg, **kw)
     assert a.history == b.history and a.evaluations == b.evaluations
     assert np.array_equal(a.densities, b.densities)
+
+
+@pytest.mark.parametrize("dims", [(37, 19, 23), (64, 64, 64)])
+@pytest.mark.parametrize("dtype,name,tol", [(torch.float64, "apply_k_fine_f64", 1e-12),
+                                            (torch.float32, "apply_k_fine_f32", 1e-5)])
+def test_periodic_apply_kernel_matches_plain(device, dims, dtype, name, tol):
+    """The periodic apply of a batch of six fields through the fine kernel
+    of their dtype (one launch per field) against the plain periodic apply,
+    on a cell of stretched (37x19x23) and cubic elements."""
+    from ndr_tpu_torch.fem import element as el
+    from ndr_tpu_torch.fem import homogenization as hom
+    from ndr_tpu_torch.grid import make_grid
+
+    grid = make_grid(dims, [[0, 0, 0], [1, 1, 1]])
+    mat = el.IsotropicMaterial(1.0, 0.3, 3)
+    K0 = torch.tensor(el.element_stiffness_matrix((1, 1, 1), grid.stretchings, mat),
+                      dtype=dtype, device=device)
+    rng = np.random.default_rng(0)
+    u = torch.tensor(rng.standard_normal((6,) + grid.dims + (3,)), dtype=dtype,
+                     device=device)
+    rho = torch.tensor(rng.uniform(0.3, 1.0, grid.dims), dtype=dtype, device=device)
+    kernels.reset_launches()
+    out = hom.periodic_apply_k(u, rho, K0, grid, use_kernels=True)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == 6 and sum(kernels.launches.values()) == 6
+    ref = hom.periodic_apply_k(u, rho, K0, grid, use_kernels=False)
+    assert _rel(out, ref) < tol
+
+
+def test_cell_problems_on_card_match_cpu(device):
+    """Homogenization of a random 16^3 cell in float64, card (the f64 fine
+    kernel) against CPU: Eh and dEh within 1e-9 of their largest entries,
+    CG counts within one iteration (the stop test on sums of another
+    order)."""
+    from ndr_tpu_torch.fem import element as el
+    from ndr_tpu_torch.fem import homogenization as hom
+    from ndr_tpu_torch.grid import make_grid
+
+    grid = make_grid((16, 16, 16), [[0, 0, 0], [1, 1, 1]])
+    mat = el.IsotropicMaterial(1.0, 0.3, 3)
+    K0 = el.element_stiffness_matrix((1, 1, 1), grid.stretchings, mat)
+    rho = np.random.default_rng(0).uniform(0.3, 1.0, grid.dims)
+    kernels.reset_launches()
+    Eh_c, dEh_c, it_c = hom.homogenize(torch.tensor(rho, device=device), grid, mat,
+                                       torch.tensor(K0, device=device), tol=1e-10)
+    assert kernels.launches["apply_k_fine_f64"] > 0
+    Eh_h, dEh_h, it_h = hom.homogenize(torch.tensor(rho), grid, mat, torch.tensor(K0),
+                                       tol=1e-10)
+    assert _rel(Eh_c.cpu(), Eh_h) < 1e-9 and _rel(dEh_c.cpu(), dEh_h) < 1e-9
+    assert (it_c.cpu() - it_h).abs().max() <= 1
+
+
+def test_batched_cg_on_card_matches_cpu(device):
+    """conjugate_gradient_batched on CUDA tensors against the same call on
+    the CPU: equal per-column counts (a column frozen at b = 0), x within
+    1e-12."""
+    from ndr_tpu_torch.fem import solvers
+
+    rng = np.random.default_rng(1)
+    S, n = 4, 30
+    A = np.zeros((S, n, n))
+    for s, k in enumerate((4, 7, 3, 11)):
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        A[s] = (Q * rng.uniform(1.0, 50.0, k)[np.arange(n) % k]) @ Q.T
+    b = rng.standard_normal((S, n))
+    b[2] = 0.0
+    out = {}
+    for dev in ("cpu", device):
+        At = torch.tensor(A, device=dev)
+        out[str(dev)] = solvers.conjugate_gradient_batched(
+            lambda x: torch.einsum("sij,sj->si", At, x), torch.tensor(b, device=dev),
+            torch.zeros(S, n, dtype=torch.float64, device=dev), tol=1e-10, max_iter=500)
+    (xh, ih), (xc, ic) = out["cpu"], out[str(device)]
+    assert ic.cpu().tolist() == ih.tolist() == [4, 7, 0, 11]
+    assert _rel(xc.cpu(), xh) < 1e-12

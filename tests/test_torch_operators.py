@@ -53,8 +53,10 @@ def _problems(prob_path, dims):
 
 def test_port_imports_without_jax():
     """The port, its CLIs (the eval ones too), the L-BFGS, calculus and
-    memory modules and chip_smoke's imports load neither JAX, optax nor any
-    module of the JAX package."""
+    memory modules, homogenization and microstructure design, the
+    continual-learning trainer, the model zoo, datasets, history and
+    chip_smoke's imports load neither JAX, optax nor any module of the JAX
+    package."""
     code = ("import sys, ndr_tpu_torch.training.train_xdg, "
             "ndr_tpu_torch.training.train_voxelfem, ndr_tpu_torch.fem.kernels, "
             "ndr_tpu_torch.utils.profile_oc, ndr_tpu_torch.utils.profile_neural, "
@@ -62,6 +64,10 @@ def test_port_imports_without_jax():
             "ndr_tpu_torch.eval.eval_fourfeat, ndr_tpu_torch.eval.fourfeat_utils, "
             "ndr_tpu_torch.ops.lbfgs, ndr_tpu_torch.ops.calculus, "
             "ndr_tpu_torch.utils.memory, "
+            "ndr_tpu_torch.fem.homogenization, ndr_tpu_torch.fem.microstructure, "
+            "ndr_tpu_torch.training.train_cl, ndr_tpu_torch.models.siren, "
+            "ndr_tpu_torch.models.cnn, ndr_tpu_torch.training.datasets, "
+            "ndr_tpu_torch.utils.history, "
             "chip_smoke; "
             "chip_smoke.port_modules(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
