@@ -74,7 +74,25 @@ each with the launch counters set to 0 just before and read just after:
      step kernels off, held together at step 0;
  19. the model zoo (SIREN 256x3 on a 192x96 grid, the CNN and deconv
      generators at their default configs) in float64, forward and backward
-     on the card against the CPU.
+     on the card against the CPU;
+ 20. the native IO library (``io/native.py``, built from
+     ``native/ndrio.cpp``): path 1's density through .msh and .vtr and
+     back, exactly, and equal to the Python writer's .vtr;
+ 21. the sharded classic path (``ground_truth_topopt(shards=...)``),
+     cantilever 192x96x96, mgl=3, 5 OC steps, as 2 slabs (96x96x96 each)
+     and as 2x2 pencils (96x48x96), 2 and 4 ranks sharing the card over
+     gloo with host-staged halos: every rank launches both fine kernels on
+     its local grid, and step 0 agrees with path 1's unsharded run to 1e-4
+     (the local shapes' kernels are also checked and timed in the kernel
+     phase, beside cuSPARSE CSR);
+ 22. ``make_sharded_solver`` on one rank over NCCL against the unsharded
+     MGPCG at 192x96x96, both refined to 1e-8 (1e-6);
+ 23. ``dryrun_multichip(2)`` (a neural step over 2 slabs, a classic OC step
+     over slabs and 1x2 pencils), 2 ranks sharing the card over gloo.
+
+The ranks of paths 21-23 are processes (``parallel.launch.spawn``), each
+with its own launch counters, set to 0 before its run and read after it.
+One card shows the sharded code paths, not their scaling.
 
 Any failed check exits non-zero. The last line of standard output is one
 JSON object naming the device; the line before it, the card's name and
@@ -198,6 +216,16 @@ CL_ITERS, CL_TASK_END = 4, 2
 CL_RE = re.compile(r"Task (\d+) step (\d+): compliance (\S+), cg_iters (\d+)")
 TOL_ZOO = 1e-12          # float64 card against CPU, forward and gradients
 ZOO_SIREN_GRID = (192, 96)
+# the sharded classic path (path 21): GRID as 2 slabs and as 2x2 pencils,
+# its ranks sharing the card over gloo (halos staged through host memory);
+# the local grids each rank's fine kernels run on
+SHARDS = (2, (2, 2))
+LOCAL_SHAPES = {"slab": (GRID[0] // 2,) + GRID[1:],
+                "pencil": (GRID[0] // 2, GRID[1] // 2) + GRID[2:]}
+SHARDED_TIMEOUT = 600
+# path 22: the sharded solver on one rank over NCCL against the unsharded
+# MGPCG, both refined to NCCL_SOLVE_TOL
+NCCL_SOLVE_TOL, TOL_NCCL = 1e-8, 1e-6
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -334,6 +362,20 @@ def stencil_from_blocks(kernels, grid, block, dtype):
             S[(o, slice(None), slice(None)) + rows] += block(a, b).to(dtype).movedim(
                 (-2, -1), (0, 1))
     return S
+
+
+def fine_csr(kernels, args, grid):
+    """The library call of a fine apply on ``args`` = (u, young, K0): a
+    thunk giving (K of the grid as CSR, u as a vector)."""
+    def library():
+        u, young, ke = args
+        N = grid.ndim
+        S = stencil_from_blocks(kernels, grid, lambda a, c: young[..., None, None]
+                                * ke[a * N:(a + 1) * N, c * N:(c + 1) * N], u.dtype)
+        K = stencil_csr(kernels, grid, S)
+        del S
+        return K, u.reshape(-1)
+    return library
 
 
 def stencil_csr(kernels, grid, S):
@@ -541,15 +583,7 @@ def phase_kernels(m):
             args = (u.to(dt), young.to(dt), prob.K0.to(dt))
             tol = TOL_F32 if dt == torch.float32 else TOL_F64
 
-            def library(args=args, grid=grid):
-                ke = args[2]
-                S = stencil_from_blocks(kernels, grid, lambda a, c: args[1][..., None, None]
-                                        * ke[a * N:(a + 1) * N, c * N:(c + 1) * N],
-                                        args[0].dtype)
-                K = stencil_csr(kernels, grid, S)
-                del S
-                return K, args[0].reshape(-1)
-
+            library = fine_csr(kernels, args, grid)
             # and of the dense K0 contraction (with the young scale) that
             # the reflection design replaced
             dense_flops = ne * (2 * d * d + d)
@@ -589,6 +623,24 @@ def phase_kernels(m):
             g = cfg.levels[l].grid
             cached(ke.contiguous(), g, f"level {l} {g.dims}", timed, ke64.contiguous())
         del ke, ke64
+        torch.cuda.empty_cache()
+
+    # the sharded solver's local grids (path 21): each rank's level 0 and
+    # float64 residual launch the flat32 pair on its block of GRID
+    prob, grid = m.simulator.problem_from_config(m.problem.load_problem(PROB), dims=GRID,
+                                                 device=dev)
+    for kind, local in LOCAL_SHAPES.items():
+        g = grid.with_dims(local)
+        u = torch.tensor(1e3 * rng.standard_normal(g.nodes_per_dim + (3,)), device=dev)
+        young = prob.young(torch.tensor(rng.uniform(1e-3, 1.0, local), device=dev))
+        for name in ("apply_k_fine_f32", "apply_k_fine_f64"):
+            dt = FINE[name][2]
+            args = (u.to(dt), young.to(dt), prob.K0.to(dt))
+            io_bytes, flops = fine_cost(g, dt)
+            run(name, getattr(kernels, name), kernels.apply_k_fine_plain, args, g,
+                TOL_F32 if dt == torch.float32 else TOL_F64, f"{kind} {local} of {GRID}",
+                cost=(io_bytes, flops, dt), library=fine_csr(kernels, args, g))
+        del u, young
         torch.cuda.empty_cache()
     return worst, records
 
@@ -937,14 +989,21 @@ def periodic_kernel_checks(m, records, worst):
         nbytes, flops = fine_cost(grid, dtype)
         ms = time_ms(lambda: kernel(full, rd, kd, grid))
         plain_ms = time_ms(lambda: kernels.apply_k_fine_plain(full, rd, kd, grid))
+        # the library call: cuSPARSE CSR SpMV with K of the expanded grid
+        K, vec = fine_csr(kernels, (full, rd, kd), grid)()
+        lib_rel = errors(K @ vec, ref.reshape(-1))[1]
+        check(lib_rel < tol, f"{name} library SpMV at the periodic cell: rel {lib_rel:.3e}")
+        lib_ms = time_ms(lambda: K @ vec)
+        del K, vec
         b_ms, b_by = bound(nbytes, flops, dtype)
         label = f"periodic {HOM_GRID} ({grid.nodes_per_dim} nodes)"
         records.setdefault(name, []).append(dict(
-            shape=label, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+            shape=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
             bound_by=b_by, bytes=nbytes, flops=flops))
         print(f"{name:22s} {label:30s} max|d| {abs_err:.3e}  rel {rel:.3e}; periodic "
               f"apply with/without kernels rel {rel_per:.3e}\n    kernel {ms:.4f} ms; "
-              f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%} of it); plain {plain_ms:.4f} ms")
+              f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%} of it); plain {plain_ms:.4f} "
+              f"ms; library {lib_ms:.4f} ms")
 
 
 def laminate_tensor(lam: float, mu: float):
@@ -1147,6 +1206,77 @@ def zoo_path(m):
               f"zoo {name} card vs CPU: forward {err_y:.3e}, gradients {err_g:.3e}")
         out.append(f"{name} {err_y:.1e}/{err_g:.1e}")
     return "model zoo float64 card vs CPU (forward/gradients): " + ", ".join(out)
+
+
+def native_io_path(m, density_path: str) -> str:
+    """Path 20: the native IO library built from ``native/ndrio.cpp``
+    round-trips a classic run's density at GRID through .msh and .vtr
+    exactly, and its .vtr reads back equal to the Python writer's (whose
+    ASCII .msh takes minutes at this size: the tests hold it byte-equal to
+    the JAX package's at small sizes)."""
+    import numpy as np
+
+    from ndr_tpu_torch.io import export, native
+
+    rho = np.load(density_path).astype(np.float64)
+    grid = m.problem.load_problem(PROB).make_grid(GRID)
+    t0 = time.perf_counter()
+    lib = native.build()
+    t_build = time.perf_counter() - t0
+    out = {}
+    t0 = time.perf_counter()
+    msh = native.write_msh(os.path.join(OUT_DIR, "io.msh"), grid, rho)
+    out["msh"] = native.read_msh_field(msh, "density", grid.num_elements).reshape(GRID)
+    t_msh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vtr = native.write_vtr(os.path.join(OUT_DIR, "io"), rho, name="density")
+    out["vtr"] = export.read_vtr(vtr)["density"]
+    t_vtr = time.perf_counter() - t0
+    py = native.write_vtr(os.path.join(OUT_DIR, "io_py"), rho, name="density",
+                          use_native=False)
+    out["python vtr"] = export.read_vtr(py)["density"]
+    for k, v in out.items():
+        check(v.shape == rho.shape and np.array_equal(v, rho),
+              f"native IO: the {k} round trip of the density differs")
+    line = (f"native IO ({lib.name}, built or found in {t_build:.2f} s): {GRID} density "
+            f"round-trips exactly through .msh ({os.path.getsize(msh) / 1e6:.1f} MB, write "
+            f"+ read {t_msh:.2f} s) and .vtr ({t_vtr:.2f} s), equal to the Python "
+            f"writer's .vtr")
+    print(line)
+    return line
+
+
+def sharded_path(shards):
+    """Path 21: ``ground_truth_topopt(shards=...)`` at GRID, mgl=MGL, ITERS
+    OC steps on 2 or 4 ranks sharing the card over gloo; every rank's
+    launch counters (set to 0 just before its run, read just after) must
+    show both fine kernels, and every rank the same history (gathered u,
+    replicated OC; 1e-12). Returns
+    (every rank's result, s/OC-iter)."""
+    from ndr_tpu_torch.parallel import checks, launch
+
+    n = math.prod(shards) if isinstance(shards, tuple) else shards
+    results = launch.spawn(checks.sharded_classic, n, device="cuda", backend="gloo",
+                           kwargs=dict(shards=shards, prob_path=PROB, dims=GRID,
+                                       num_levels=MGL, iters=ITERS),
+                           timeout=SHARDED_TIMEOUT)
+    res = results[0]
+    check(len(res["history"]) == ITERS and all(math.isfinite(c) and c > 0
+                                               for c in res["history"]),
+          f"sharded {shards}: history {res['history']}")
+    check(max(res["cg_iters"]) < CG_CAP, f"sharded {shards}: cg_iters {res['cg_iters']}")
+    for r, other in enumerate(results):
+        print(f"[sharded {shards} rank {r}] launches {other['launches']}")
+        for name in ("apply_k_fine_f32", "apply_k_fine_f64"):
+            check(other["launches"][name] > 0,
+                  f"sharded {shards}: rank {r} launched no {name}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(other["history"], res["history"]))
+        check(rel <= 1e-12, f"sharded {shards}: rank {r}'s history differs from rank "
+                            f"0's by {rel:.3e}")
+        if rel:
+            print(f"[sharded {shards} rank {r}] history {rel:.3e} from rank 0's, not bitwise")
+    print(res["log"].splitlines()[0])
+    return results, statistics.median(res["step_seconds"][1:])
 
 
 def agree(label: str, a: float, b: float):
@@ -1504,10 +1634,62 @@ def main():
         print("== 22. the model zoo in float64: card against CPU")
         line, counts, _ = run_path(m, "model zoo", lambda: zoo_path(m), ())
         timings.append(line)
+
+        print(f"== 23. native IO: phase 4's density at {GRID} through .msh and .vtr")
+        timings.append(native_io_path(m, os.path.join(OUT_DIR, "classic_on_densities.npy")))
+
+        print(f"== 24. sharded classic: {PROB} {GRID} mgl={MGL}, {ITERS} OC steps, "
+              f"2 slabs {LOCAL_SHAPES['slab']} and 2x2 pencils {LOCAL_SHAPES['pencil']}, "
+              f"the ranks sharing the card over gloo (host-staged halos)")
+        for shards in SHARDS:
+            results, s_iter = sharded_path(shards)
+            for res in results:
+                total = {k: total[k] + res["launches"][k] for k in total}
+            res = results[0]
+            agree(f"sharded {shards} step-0 compliance against phase 4's unsharded run",
+                  res["history"][0], steps_on[0][1])
+            halo = "; ".join(f"{k}: {v['exchanges']} exchanges, {v['bytes']} B"
+                             for k, v in res["halo_per_apply"].items())
+            timings.append(
+                f"classic {GRID} mgl={MGL} sharded {shards} ({res['route']}, local "
+                f"{tuple(res['local_dims'])}, one card, so code paths, not scaling): "
+                f"s/OC-iter {s_iter:.4f} (unsharded, phase 4: {t_on:.4f}), cg_iters "
+                f"{res['cg_iters']}, halo per level-0 apply on rank 0: {halo}")
+            print(timings[-1])
+
+        print(f"== 25. make_sharded_solver on one rank over NCCL: {GRID} mgl={MGL} "
+              f"against the unsharded MGPCG, both refined to {NCCL_SOLVE_TOL:g}")
+        from ndr_tpu_torch.parallel import checks, dryrun, launch
+
+        res = launch.spawn(checks.world_one_check, 1, device="cuda", backend="nccl",
+                           kwargs=dict(prob_path=PROB, dims=GRID, num_levels=MGL,
+                                       tol=NCCL_SOLVE_TOL))[0]
+        check(res["route"] == "nccl", f"world size 1: route {res['route']}")
+        check(res["rel_diff"] <= TOL_NCCL, f"world size 1 over NCCL against the unsharded "
+                                           f"solve: rel {res['rel_diff']:.3e} > {TOL_NCCL:g}")
+        timings.append(f"sharded solver, 1 rank over NCCL, {GRID} mgl={MGL} tol "
+                       f"{NCCL_SOLVE_TOL:g}: rel diff to the unsharded solve "
+                       f"{res['rel_diff']:.3e}; (cg iterations, s) sharded "
+                       f"{res['sharded']}, unsharded {res['unsharded']}")
+        print(timings[-1])
+
+        print("== 26. dryrun_multichip(2) on the card (2 ranks sharing it over gloo)")
+        t0 = time.perf_counter()
+        results = dryrun.dryrun_multichip(2, device="cuda", backend="gloo")
+        for r, res in enumerate(results):
+            print(f"[dryrun rank {r}] launches {res['launches']}")
+            check(res["launches"]["apply_k_fine_f32"] > 0
+                  and res["launches"]["apply_k_fine_f64"] > 0,
+                  f"dryrun rank {r}: the fine kernels were not launched")
+            total = {k: total[k] + res["launches"][k] for k in total}
+        timings.append(f"dryrun_multichip(2) on the card: compliance "
+                       f"{results[0]['compliance']:.6f}, classic 1-D "
+                       f"{results[0]['classic 1-D']:.6f}, 2-D {results[0]['classic 2-D']:.6f}, "
+                       f"wall {time.perf_counter() - t0:.2f} s")
     finally:
         shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    print("== 23. summary")
+    print("== 27. summary")
     print("launches over the paths:", total)
     for name, n in total.items():
         check(n > 0, f"{name} was launched by no path")

@@ -6,7 +6,8 @@ nothing of ``ndr_tpu``: the NumPy-only modules it needs (``grid``,
 ``fem.element``, ``io.problem``, ``io.export``) are its own copies.
 
   ndr_tpu_torch.grid      voxel-grid geometry and index conventions
-  ndr_tpu_torch.io        problem/BC/material JSON, density export
+  ndr_tpu_torch.io        problem/BC/material JSON, density export, the
+                          native IO library (``io.native``)
   ndr_tpu_torch.fem       stiffness operators, hand-written CUDA kernels
                           (``fem.kernels``, sources in ``csrc/``),
                           multigrid, MGPCG, compliance and OC
@@ -14,7 +15,10 @@ nothing of ``ndr_tpu``: the NumPy-only modules it needs (``grid``,
   ndr_tpu_torch.ops       density filters, volume constraint and satisfiers
   ndr_tpu_torch.training  the classic SIMP-OC and neural-TO trainers, CLIs
   ndr_tpu_torch.eval      evaluation at a test resolution, its CLIs
-  ndr_tpu_torch.utils     device/precision setup, timers, checkpoints
+  ndr_tpu_torch.utils     device/precision setup, timers, checkpoints,
+                          plots
+  ndr_tpu_torch.parallel  the sharded solver over torch.distributed ranks,
+                          process groups and the multi-rank dry run
 """
 
 __version__ = "0.2.0"

@@ -553,11 +553,12 @@ def _dinv_apply(lv: LevelState, r: torch.Tensor) -> torch.Tensor:
 
 def chebyshev_core(apply_fn, dinv_fn, zero_fn, lmax, x, b, degree: int,
                    lower_frac: float = 0.25, x_is_zero: bool = False,
-                   need_r: bool = False):
+                   need_r: bool = False, r0=None):
     """Degree-`degree` Chebyshev smoothing on D^-1 K over
     [lower_frac*lmax, lmax]. Returns ``(x, r)``; ``r = b - K x`` comes
     free when ``need_r`` (else ``None``), and ``x_is_zero`` skips the
-    initial apply."""
+    initial apply, as does ``r0``, a precomputed ``zero_fn(b - K x)``
+    (the sharded solver chains its sweeps so)."""
     # scalar coefficients in the working dtype, as the JAX package
     # evaluates them (its lmax is an array of the level's dtype)
     st = np.float32 if b.dtype == torch.float32 else np.float64
@@ -567,7 +568,10 @@ def chebyshev_core(apply_fn, dinv_fn, zero_fn, lmax, x, b, degree: int,
     delta = st(0.5) * (lmax - lmin)
     sigma1 = theta / delta
 
-    r = b if x_is_zero else zero_fn(b - apply_fn(x))
+    if r0 is not None:
+        r = r0
+    else:
+        r = b if x_is_zero else zero_fn(b - apply_fn(x))
     z = dinv_fn(r)
     d = z / float(theta)
     rho = st(1.0) / sigma1

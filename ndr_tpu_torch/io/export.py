@@ -12,6 +12,7 @@ density fields on the voxel grid.
 from __future__ import annotations
 
 import base64
+import re
 import struct
 from typing import Dict
 
@@ -155,3 +156,34 @@ def read_msh_element_field(path: str, name: str = "density") -> np.ndarray:
         else:
             i += 1
     raise KeyError(f"field {name!r} not found in {path}")
+
+
+def read_vtr(path: str) -> Dict[str, np.ndarray]:
+    """The cell arrays of a RectilinearGrid file as C-order (x slowest)
+    float64 arrays of the grid's cell dims: base64 inline data, as
+    :func:`write_vtr` writes it, or raw appended data, as the native
+    library's writer does."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    xml_end = raw.find(b"<AppendedData")
+    head = raw[:xml_end if xml_end >= 0 else len(raw)].decode()
+    ext = [int(v) for v in re.search(r'WholeExtent="([^"]+)"', head).group(1).split()]
+    dims = (ext[1] - ext[0], ext[3] - ext[2], ext[5] - ext[4])
+    cells = head[head.find("<CellData>"):head.find("</CellData>")]
+    uint64 = 'header_type="UInt64"' in head
+    hsize, hfmt = (8, "<Q") if uint64 else (4, "<I")
+    out = {}
+    for m in re.finditer(r'<DataArray type="Float64" Name="([^"]+)" '
+                         r'format="(\w+)"(?: offset="(\d+)"/>|>([^<]*)</DataArray>)',
+                         cells):
+        name, fmt, offset, text = m.groups()
+        if fmt == "appended":
+            start = raw.index(b"_", xml_end) + 1 + int(offset)
+            n = struct.unpack(hfmt, raw[start:start + hsize])[0]
+            payload = raw[start + hsize:start + hsize + n]
+        else:
+            payload = base64.b64decode(text)[hsize:]
+        flat = np.frombuffer(payload, dtype="<f8")
+        # VTK cell data is x-fastest
+        out[name] = flat.reshape(dims[::-1]).transpose(2, 1, 0).copy()
+    return out

@@ -202,9 +202,9 @@ def smoothing_filter(x, radius: int):
     return x
 
 
-def gaussian_kernel_1d(kernel_size: int, sigma: float, dtype=torch.float64,
-                       device="cpu") -> torch.Tensor:
-    """Kornia-compatible normalized Gaussian window."""
+def gaussian_kernel_1d(kernel_size: int, sigma: float, dtype, device) -> torch.Tensor:
+    """Kornia-compatible normalized Gaussian window, of the filtered field's
+    dtype and device."""
     xs = torch.arange(kernel_size, dtype=dtype, device=device) - kernel_size // 2
     g = torch.exp(-(xs ** 2) / (2.0 * sigma ** 2))
     return g / g.sum()

@@ -56,10 +56,6 @@ class ClassicResult:
     evaluations: int = 0
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
-
-
 def ground_truth_topopt(
     cfg: ProblemConfig,
     dims=None,
@@ -92,17 +88,20 @@ def ground_truth_topopt(
     Defaults are ``ndr_tpu``'s: fp32 hot path with float64-refined
     equilibrium, Chebyshev smoother of degree 1 per smoothing sweep.
     ``solver_overrides``: ``MGSolverSettings`` fields to replace (e.g.
-    ``{"cached_ke_dtype": "bfloat16"}``). ``optimizer``: "OC" or "LBFGS"
-    (``max_iter`` then bounds its inner iterations; ``history`` holds 2 c
-    at the start of each, then the restored design's).
+    ``{"cached_ke_dtype": "bfloat16"}``; with shards, keywords of the
+    sharded solver). ``optimizer``: "OC" or "LBFGS" (``max_iter`` then
+    bounds its inner iterations; ``history`` holds 2 c at the start of
+    each, then the restored design's). ``shards``: N (slabs) or (NX, NY)
+    (pencils) runs the solve over the N or NX * NY ranks of the
+    initialized process group (``parallel.launch``; every rank calls this
+    function) with the JAX package's sharded solver: Chebyshev smoothing
+    whatever ``smoother`` says, no lagged preconditioner or chunked loop.
     """
     if optimizer not in ("OC", "LBFGS"):
         raise ValueError(f"optimizer={optimizer!r}: OC or LBFGS")
     if optimizer == "LBFGS" and (precond_lag > 1 or scan_chunk > 1):
         raise ValueError("optimizer='LBFGS' has neither a lagged preconditioner "
                          "(precond_lag) nor a chunked loop (scan_chunk)")
-    if (shards if isinstance(shards, int) else max(shards)) > 1:
-        _not_ported("shards", "Queue 1 item 6 (parallel/mesh.py)")
     device = torch.device(device)
     dtype = dtype or torch.float32
     # mgl=0 means the plain-CG exact-solve path (reference's direct solve)
@@ -113,7 +112,24 @@ def ground_truth_topopt(
         flt.ProjectionFilter(beta=projection_beta),
     ]
     mixed = False
-    if use_multigrid:
+    shards_2d = tuple(shards) if isinstance(shards, (tuple, list)) else None
+    sharded = (shards_2d[0] * shards_2d[1] > 1) if shards_2d else shards > 1
+    if sharded:
+        # the sharded MGPCG (parallel.mesh) over the ranks of the process
+        # group replaces the single-device solver; filters, OC and the
+        # adjoint run replicated on every rank, on the gathered u
+        from ndr_tpu_torch.parallel import mesh as pmesh
+
+        if multigrid_levels < 1:
+            raise ValueError("shards need the multigrid solver (multigrid_levels >= 1)")
+        kw = dict(num_levels=multigrid_levels, tol=tol, max_iter=cg_iter or 100,
+                  mixed_precision=dtype == torch.float32, use_kernels=use_kernels,
+                  **(solver_overrides or {}))
+        solve = (pmesh.make_sharded_solver_2d(prob, *shards_2d, **kw) if shards_2d
+                 else pmesh.make_sharded_solver(prob, shards, **kw))
+        mixed = dtype == torch.float32
+        log(f"Stiffness applies: {solve.description}\n")
+    elif use_multigrid:
         if cg_iter is None:
             # un-coarsenable grids degrade to block-Jacobi PCG, which
             # needs far more (much cheaper) iterations

@@ -1,13 +1,23 @@
 """Classic-SIMP CLI driver (counterpart of ``ndr_tpu/training/train_voxelfem.py``).
 
-Beyond the JAX CLI's flags: ``--device``, ``--kernels``, and ``--init``
+Beyond the JAX CLI's flags: ``--device``, ``--kernels``, ``--init``
 (start from a saved design, e.g. to run a lagged preconditioner past the
 first large OC moves, as the JAX package's lag measurement does after
-its warm-up steps).
+its warm-up steps) and ``--dist-backend``.
+
+``--shards N`` (slabs) or ``--shards NX,NY`` (pencils) runs one process
+per shard under ``torchrun``, each on its own device: the solve is sharded
+(:mod:`ndr_tpu_torch.parallel.mesh`), the rest runs on every rank, and
+rank 0 alone logs and writes the artifacts. The backend is nccl on cards
+(one per rank) and gloo on the CPU; ``--dist-backend gloo`` lets ranks
+share a card (halos staged through host memory).
 
 Example:
     python -m ndr_tpu_torch.training.train_voxelfem --prob problems/2d/mbb_beam.json \\
         --iter 1500 --mgl 2 --optim OC --jid myrun --device cuda
+    torchrun --nproc_per_node 2 -m ndr_tpu_torch.training.train_voxelfem \\
+        --prob problems/3d/bridge.json --grid "[16,8,8]" --mgl 1 --iter 4 \\
+        --shards 2 --device cpu
 """
 
 from __future__ import annotations
@@ -16,6 +26,7 @@ import argparse
 import ast
 import dataclasses
 import json
+import math
 import os
 import sys
 
@@ -24,6 +35,7 @@ import torch
 
 from ndr_tpu_torch.io import export
 from ndr_tpu_torch.io.problem import load_problem
+from ndr_tpu_torch.parallel import launch
 from ndr_tpu_torch.training.classic import ground_truth_topopt
 from ndr_tpu_torch.utils import timers
 from ndr_tpu_torch.utils.torch_setup import resolve_device, setup
@@ -59,7 +71,11 @@ def main(argv=None):
                    help="solver relative-residual tolerance")
     p.add_argument("--log-every", default=1, type=int)
     p.add_argument("--shards", default="0",
-                   help="grid decomposition over devices (not ported yet)")
+                   help="N (slabs) or NX,NY (pencils): the sharded solver over "
+                        "the ranks of a torchrun launch of N or NX*NY processes")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend with --shards (default: nccl "
+                        "on cuda, gloo on cpu; gloo lets ranks share a card)")
     p.add_argument("--init", default=None,
                    help="start from this design (a .npy of the grid's dims, e.g. "
                         "the <jid>_densities.npy of an earlier run) instead of "
@@ -75,17 +91,39 @@ def main(argv=None):
     if args.optim == "LBFGS" and (args.precond_lag > 1 or args.scan > 1):
         p.error("--optim LBFGS takes neither --precond-lag nor --scan (OC only)")
 
+    shards = (tuple(int(s) for s in args.shards.split(","))
+              if "," in args.shards else int(args.shards))
+    n_ranks = math.prod(shards) if isinstance(shards, tuple) else shards
     setup()
-    device = resolve_device(args.device)
+    rank = 0
+    if n_ranks > 1:
+        if "WORLD_SIZE" not in os.environ:
+            p.error(f"--shards {args.shards} runs one process per shard: start it "
+                    f"with torchrun --nproc_per_node {n_ranks} -m "
+                    "ndr_tpu_torch.training.train_voxelfem ...")
+        device = launch.init(args.dist_backend, args.device)
+        rank = torch.distributed.get_rank()
+    else:
+        device = resolve_device(args.device)
     dtype = torch.float64 if args.x64 else torch.float32
-
     cfg = load_problem(args.prob)
     dims = ast.literal_eval(args.grid) if args.grid else None
     if args.v0 is not None:
         cfg = dataclasses.replace(cfg, max_volume=float(args.v0))
+    try:
+        return _run(args, cfg, dims, shards, device, dtype, rank)
+    finally:
+        if n_ranks > 1:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, cfg, dims, shards, device, dtype, rank):
+    """The run and, on rank 0, its log and artifacts."""
+    log = sys.stderr.write if rank == 0 else (lambda s: None)
 
     timers.reset()
-    os.makedirs(args.out, exist_ok=True)
+    if rank == 0:
+        os.makedirs(args.out, exist_ok=True)
     title = args.jid or cfg.name
 
     # density snapshots every max_iter/10 steps, of the physical densities
@@ -106,14 +144,15 @@ def main(argv=None):
         use_multigrid=args.mgl > 0, tol=args.tol,
         log_every=args.log_every, smoother=args.smoother,
         use_kernels={"auto": "auto", "on": True, "off": False}[args.kernels],
-        cg_iter=args.cg_iter, optimizer=args.optim, snapshot_cb=snapshot_cb,
-        dtype=dtype, device=device,
-        shards=(tuple(int(s) for s in args.shards.split(","))
-                if "," in args.shards else int(args.shards)),
+        cg_iter=args.cg_iter, optimizer=args.optim,
+        snapshot_cb=snapshot_cb if rank == 0 else None, log=log,
+        dtype=dtype, device=device, shards=shards,
         precond_lag=args.precond_lag,
         scan_chunk=args.scan,
         init=np.load(args.init) if args.init else None,
     )
+    if rank != 0:
+        return result
     np.save(os.path.join(args.out, f"{title}_densities.npy"), result.densities)
     export.write_vtr(os.path.join(args.out, f"{title}"),
                      {"density": result.physical}, spacing=spacing)

@@ -14,8 +14,10 @@ paths:
   * ``meta`` — JSON bytes with ``scale``, ``step`` and ``format: 2``.
 
 Restore checks the key set and every shape against the model and casts
-to its dtype. The JAX package's older positional (format-1) files are
-not read.
+to its dtype. The JAX package's older positional (format-1) files, whose
+leaves sit under ``params/leaf_{i}``, ``buffers/leaf_{i}`` and
+``opt/leaf_{i}`` in ``jax.tree_util.tree_flatten`` order, are read too
+(:func:`_positional_keys`); saving writes format 2.
 """
 
 from __future__ import annotations
@@ -120,6 +122,22 @@ class AsyncCheckpointer:
             raise err
 
 
+def _positional_keys(paths) -> Dict[str, str]:
+    """The format-1 key of each format-2 key: a leaf's position in
+    ``jax.tree_util.tree_flatten`` order of the JAX package's trees. Dict
+    keys flatten sorted, so ``params = {"layers": [{"b", "w"}, ...]}``
+    gives each layer's b, then its w (the order of :func:`_param_paths`),
+    ``buffers = {"B"}`` one leaf, and optax's Adam state
+    ``(ScaleByAdamState(count, mu, nu), ...)`` the count, then mu's
+    leaves, then nu's."""
+    keys = {"buffers/B": "buffers/leaf_0", "opt/0/count": "opt/leaf_0"}
+    for i, (k, _) in enumerate(paths):
+        keys[f"params/{k}"] = f"params/leaf_{i}"
+        keys[f"opt/0/mu/{k}"] = f"opt/leaf_{1 + i}"
+        keys[f"opt/0/nu/{k}"] = f"opt/leaf_{1 + len(paths) + i}"
+    return keys
+
+
 def _restore(data, key: str, target: torch.Tensor) -> torch.Tensor:
     arr = data[key]
     if tuple(arr.shape) != tuple(target.shape):
@@ -132,15 +150,15 @@ def load_checkpoint(path: str, model: FourierFeatureMLP,
                     optimizer: Optional[torch.optim.Optimizer] = None
                     ) -> Tuple[float, Optional[int]]:
     """Restore weights, ``B`` and (when ``optimizer`` is given and the file
-    has one) the Adam state into ``model`` / ``optimizer`` in place;
-    returns (scale, step)."""
+    has one) the Adam state into ``model`` / ``optimizer`` in place, from
+    a format-2 or a positional format-1 file; returns (scale, step)."""
     paths = _param_paths(model)
     with np.load(path) as data:
         meta = json.loads(bytes(data["meta"]).decode())
-        if meta.get("format", 1) < 2:
-            raise ValueError(f"{path}: positional (format-1) checkpoints are "
-                             "not supported")
-        want = {f"params/{k}" for k, _ in paths} | {"buffers/B"}
+        # the stored key of each format-2 key
+        key = (_positional_keys(paths).__getitem__ if meta.get("format", 1) < 2
+               else (lambda k: k))
+        want = {key(f"params/{k}") for k, _ in paths} | {key("buffers/B")}
         stored = {k for k in data.files if k.startswith(("params/", "buffers/"))}
         if want != stored:
             raise ValueError(
@@ -149,25 +167,25 @@ def load_checkpoint(path: str, model: FourierFeatureMLP,
                 f"{sorted(stored - want)[:5]}")
         with torch.no_grad():
             for k, p in paths:
-                p.copy_(_restore(data, f"params/{k}", p))
-            model.B.copy_(_restore(data, "buffers/B", model.B))
+                p.copy_(_restore(data, key(f"params/{k}"), p))
+            model.B.copy_(_restore(data, key("buffers/B"), model.B))
         has_opt = any(k.startswith("opt/") for k in data.files)
         if optimizer is not None and has_opt:
-            want = ({"opt/0/count"} | {f"opt/0/{m}/{k}" for k, _ in paths
-                                       for m in ("mu", "nu")})
+            want = {key(k) for k in ["opt/0/count"] + [f"opt/0/{m}/{k}" for k, _ in paths
+                                                        for m in ("mu", "nu")]}
             stored = {k for k in data.files if k.startswith("opt/")}
             if want != stored:
                 raise ValueError(
                     f"checkpoint optimizer state is not Adam's: missing keys "
                     f"{sorted(want - stored)[:5]}, unexpected keys "
                     f"{sorted(stored - want)[:5]}")
-            count = float(data["opt/0/count"])
+            count = float(data[key("opt/0/count")])
             on_device = optimizer.defaults.get("capturable") or optimizer.defaults.get("fused")
             for k, p in paths:
                 optimizer.state[p] = {
                     "step": torch.tensor(count, dtype=torch.float32,
                                          device=p.device if on_device else "cpu"),
-                    "exp_avg": _restore(data, f"opt/0/mu/{k}", p),
-                    "exp_avg_sq": _restore(data, f"opt/0/nu/{k}", p),
+                    "exp_avg": _restore(data, key(f"opt/0/mu/{k}"), p),
+                    "exp_avg_sq": _restore(data, key(f"opt/0/nu/{k}"), p),
                 }
     return meta["scale"], meta.get("step")

@@ -148,14 +148,17 @@ def test_cli_cpu_smoke(tmp_path, capsys):
     assert np.load(out / "smoke_densities.npy").shape == (24, 8)
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
+def test_cli_refuses_what_is_not_ported(tmp_path, capsys):
     base = ["--prob", MBB, "--grid", "[24,8]", "--iter", "1", "--out",
             str(tmp_path)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_voxelfem.main(base)          # --device defaults to cuda
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # sharding is ported: --shards runs one process per shard under
+    # torchrun, and started without it the CLI says so
+    with pytest.raises(SystemExit):
         train_voxelfem.main(base + ["--device", "cpu", "--shards", "2"])
+    assert "torchrun --nproc_per_node 2" in capsys.readouterr().err
     # L-BFGS, float64, the GS smoother, the lagged preconditioner and the
     # chunked loop are ported
     result = train_voxelfem.main(base + ["--device", "cpu", "--optim", "LBFGS", "--x64"])

@@ -624,3 +624,58 @@ def test_batched_cg_on_card_matches_cpu(device):
     (xh, ih), (xc, ic) = out["cpu"], out[str(device)]
     assert ic.cpu().tolist() == ih.tolist() == [4, 7, 0, 11]
     assert _rel(xc.cpu(), xh) < 1e-12
+
+
+# the local grids of the sharded solver: slabs and pencils of the smoke's
+# 192x96x96 and of a small grid
+LOCAL_CASES = [((192, 96, 96), (2,)), ((192, 96, 96), (2, 2)),
+               ((32, 16, 16), (4,)), ((32, 16, 16), (2, 2))]
+
+
+@pytest.mark.parametrize("dims,shape", LOCAL_CASES)
+def test_fine_kernels_on_local_grids(device, dims, shape):
+    """apply_k_fine_f32 / _f64 on every shard's local block (slab
+    (L, ny, nz), pencil (Lx, Ly, nz)) of the same global fields, against
+    the twin; one launch each per block."""
+    from ndr_tpu_torch.parallel import mesh as pm
+
+    prob, grid = problem_from_config(load_problem("problems/3d/cantilever_flexion.json"),
+                                     dims=dims, device=device)
+    sg = pm.ShardedGrid(grid, *shape) if len(shape) == 1 else pm.ShardedGrid2D(grid, *shape)
+    rng = np.random.default_rng(1)
+    u = torch.tensor(rng.standard_normal(grid.nodes_per_dim + (3,)), device=device)
+    young = prob.young(torch.tensor(rng.uniform(1e-3, 1.0, grid.dims), device=device))
+    K32 = prob.K0.float()
+    kernels.reset_launches()
+    for c in np.ndindex(*shape):
+        u_l, y_l = pm.node_block(u, sg, c), pm.elem_block(young, sg, c)
+        assert y_l.shape == sg.local_dims
+        f32 = kernels.apply_k_fine_f32(u_l.float(), y_l.float(), K32, sg.local_grid)
+        f64 = kernels.apply_k_fine_f64(u_l, y_l, prob.K0, sg.local_grid)
+        torch.cuda.synchronize()
+        assert _rel(f32, kernels.apply_k_fine_plain(u_l.float(), y_l.float(), K32,
+                                                    sg.local_grid)) < 1e-5
+        assert _rel(f64, kernels.apply_k_fine_plain(u_l, y_l, prob.K0,
+                                                    sg.local_grid)) < 1e-12
+    n = int(np.prod(shape))
+    assert kernels.launches["apply_k_fine_f32"] == kernels.launches["apply_k_fine_f64"] == n
+
+
+def test_one_rank_sharded_solve_on_card_matches_cpu(device):
+    """make_sharded_solver on a one-rank mesh (no process group) with the
+    kernels on the card against the same solve on the CPU."""
+    from ndr_tpu_torch.parallel import mesh as pm
+
+    cfg = load_problem("problems/3d/bridge.json")
+    rho = np.random.default_rng(2).uniform(0.05, 1.0, (32, 16, 16))
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        prob, _ = problem_from_config(cfg, dims=(32, 16, 16), device=dev,
+                                      dtype=torch.float32)
+        kernels.reset_launches()
+        solve = pm.make_sharded_solver(prob, 1, 2, tol=1e-8, use_kernels=True)
+        out[dev.type] = solve(torch.tensor(rho, dtype=torch.float32, device=dev))[0].cpu()
+        if dev.type == "cuda":
+            assert kernels.launches["apply_k_fine_f32"] > 0
+            assert kernels.launches["apply_k_fine_f64"] > 0
+    assert _rel(out["cuda"], out["cpu"]) < 1e-6

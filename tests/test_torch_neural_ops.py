@@ -172,7 +172,8 @@ def test_training_filters_match_jax(shape):
     for sigma in (0.5, 1.0, 1.7):
         assert _rel(tflt.gaussian_filter(xt, sigma), jflt.gaussian_filter(xj, sigma)) < 1e-12
         assert tflt.gaussian_kernel_size(sigma) == jflt.gaussian_kernel_size(sigma)
-    assert _rel(tflt.gaussian_kernel_1d(5, 1.3), jflt.gaussian_kernel_1d(5, 1.3)) < 1e-15
+    assert _rel(tflt.gaussian_kernel_1d(5, 1.3, torch.float64, "cpu"),
+                jflt.gaussian_kernel_1d(5, 1.3)) < 1e-15
 
 
 def test_adaptive_filter_schedule_matches_jax():

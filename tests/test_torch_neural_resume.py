@@ -8,6 +8,8 @@ ndr_tpu_torch, against the JAX package where it has a counterpart.
     after 3 steps loads into the port (weights, B and the Adam state),
     and 3 more steps from it match JAX continuing from the same file;
     the port's own checkpoint reads back into JAX unchanged;
+  * a positional (format-1) file restores the same state through both
+    packages;
   * the CLI writes every artifact at CPU size and refuses what is not
     ported.
 """
@@ -115,6 +117,51 @@ def test_resume_from_jax_checkpoint_matches_jax(tmp_path):
     np.testing.assert_array_equal(
         np.asarray(opt[0].mu["layers"][1]["b"]),
         tstate.optimizer.state[tstate.model.layers[1].bias]["exp_avg"].numpy())
+
+
+def test_format1_checkpoint_restores_in_both_packages(tmp_path):
+    """A hand-built positional (format-1) file, its leaves in
+    ``jax.tree_util.tree_flatten`` order, restores the same weights, B and
+    Adam state through the JAX package and the port (exact)."""
+    import jax
+
+    jcfg, tcfg, jn, tn = _configs()
+    js, _, _ = jneural.build_trainer(jcfg, jn, dims=DIMS, dtype=jnp.float64)
+    rng = np.random.default_rng(4)
+    fill = lambda t: jax.tree_util.tree_map(
+        lambda a: np.asarray(rng.standard_normal(np.shape(a)), np.asarray(a).dtype), t)
+    params, buffers = fill(js.params), fill(js.buffers)
+    opt = jax.tree_util.tree_map(np.asarray, js.opt_state)
+    opt = (opt[0]._replace(count=np.asarray(7, np.int32), mu=fill(opt[0].mu),
+                           nu=fill(opt[0].nu)),) + tuple(opt[1:])
+    payload = {"meta": np.frombuffer(json.dumps({"scale": 2.5, "step": 7}).encode(),
+                                     dtype=np.uint8)}
+    for prefix, tree in (("params", params), ("buffers", buffers), ("opt", opt)):
+        for i, leaf in enumerate(jax.tree_util.tree_leaves(tree)):
+            payload[f"{prefix}/leaf_{i}"] = leaf
+    path = str(tmp_path / "format1.npz")
+    np.savez(path, **payload)
+
+    jp, jb, jscale, jstep, jopt = jckpt.load_checkpoint(path, js.params, js.buffers,
+                                                        js.opt_state)
+    ts, _, _ = tneural.build_trainer(tcfg, tn, dims=DIMS, dtype=torch.float64,
+                                     device="cpu")
+    assert tckpt.load_checkpoint(path, ts.model, ts.optimizer) == (jscale, jstep) == (2.5, 7)
+    np.testing.assert_array_equal(ts.model.B.numpy(), np.asarray(jb["B"]))
+    for i, lyr in enumerate(ts.model.layers):
+        for name, t in (("w", lyr.weight), ("b", lyr.bias)):
+            np.testing.assert_array_equal(t.detach().numpy(),
+                                          np.asarray(jp["layers"][i][name]))
+            st = ts.optimizer.state[t]
+            assert int(st["step"]) == int(jopt[0].count) == 7
+            np.testing.assert_array_equal(st["exp_avg"].numpy(),
+                                          np.asarray(jopt[0].mu["layers"][i][name]))
+            np.testing.assert_array_equal(st["exp_avg_sq"].numpy(),
+                                          np.asarray(jopt[0].nu["layers"][i][name]))
+    del payload["params/leaf_0"]
+    np.savez(path, **payload)
+    with pytest.raises(ValueError, match="structure mismatch"):
+        tckpt.load_checkpoint(path, ts.model)
 
 
 def test_async_checkpointer_writes_in_order_and_raises(tmp_path):

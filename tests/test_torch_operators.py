@@ -54,9 +54,11 @@ def _problems(prob_path, dims):
 def test_port_imports_without_jax():
     """The port, its CLIs (the eval ones too), the L-BFGS, calculus and
     memory modules, homogenization and microstructure design, the
-    continual-learning trainer, the model zoo, datasets, history and
-    chip_smoke's imports load neither JAX, optax nor any module of the JAX
-    package."""
+    continual-learning trainer, the model zoo, datasets, history, the
+    sharded solver with its launcher, checks and dry run, the native IO,
+    the plots and chip_smoke's imports load neither JAX, optax nor any
+    module of the JAX package; nor matplotlib, which the plots import
+    when they draw."""
     code = ("import sys, ndr_tpu_torch.training.train_xdg, "
             "ndr_tpu_torch.training.train_voxelfem, ndr_tpu_torch.fem.kernels, "
             "ndr_tpu_torch.utils.profile_oc, ndr_tpu_torch.utils.profile_neural, "
@@ -68,10 +70,13 @@ def test_port_imports_without_jax():
             "ndr_tpu_torch.training.train_cl, ndr_tpu_torch.models.siren, "
             "ndr_tpu_torch.models.cnn, ndr_tpu_torch.training.datasets, "
             "ndr_tpu_torch.utils.history, "
+            "ndr_tpu_torch.parallel.mesh, ndr_tpu_torch.parallel.launch, "
+            "ndr_tpu_torch.parallel.checks, ndr_tpu_torch.parallel.dryrun, "
+            "ndr_tpu_torch.io.native, ndr_tpu_torch.utils.visualizations, "
             "chip_smoke; "
             "chip_smoke.port_modules(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'optax', 'ndr_tpu')]; "
+            "('jax', 'jaxlib', 'optax', 'ndr_tpu', 'matplotlib')]; "
             "assert not bad, bad; print('ok')")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
