@@ -88,9 +88,26 @@ each with the launch counters set to 0 just before and read just after:
  22. ``make_sharded_solver`` on one rank over NCCL against the unsharded
      MGPCG at 192x96x96, both refined to 1e-8 (1e-6);
  23. ``dryrun_multichip(2)`` (a neural step over 2 slabs, a classic OC step
-     over slabs and 1x2 pencils), 2 ranks sharing the card over gloo.
+     over slabs and 1x2 pencils), 2 ranks sharing the card over gloo;
+ 24. ``parallel.dryrun.entry()``, the single-card forward step (MLP ->
+     constrained sigmoid -> one MGPCG solve -> compliance) at 16x8x8, on
+     the card against the same call on the CPU, and its gradient;
+ 25. ``utils.timers.trace``: a trace of that forward step holds device
+     kernels;
+ 26. ``ops.volume.total_volume_constraint_grad`` and
+     ``multigrid.build_level_stiffness`` (192x96x96, mgl=3, float64) on the
+     card against the CPU;
+ 27. ``utils.reproduce --only mbb300,c3d_256 --iter 20``: the reference's
+     2-D MBB 300x100 and cantilever 256x128x128 (mgl=5) runs, 20 OC steps
+     each through the CLI;
+ 28. ``utils.mg_benchmark --fields 2 --refined --kernels on`` at 64x32x32:
+     the 18 operating points, each compliance error within 10 x its tol;
+ 29. ``utils.neural_throughput 21 cheb2_mgl2``;
+ 30. ``parallel.validate_2d --dims 32,16,16 --steps 2``: unsharded, 4 slabs
+     and 2x2 pencils, 4 ranks sharing the card over gloo, the trajectories
+     within 5e-3.
 
-The ranks of paths 21-23 are processes (``parallel.launch.spawn``), each
+The ranks of paths 21-23 and 30 are processes (``parallel.launch.spawn``), each
 with its own launch counters, set to 0 before its run and read after it.
 One card shows the sharded code paths, not their scaling.
 
@@ -227,6 +244,22 @@ SHARDED_TIMEOUT = 600
 # MGPCG, both refined to NCCL_SOLVE_TOL
 NCCL_SOLVE_TOL, TOL_NCCL = 1e-8, 1e-6
 
+# the reproduction and measurement tools (paths 24-30)
+TOL_ENTRY = 1e-4          # entry() card against CPU: both solves refined to tol 1e-4
+TOL_LEVEL_KE = 1e-12      # float64 Galerkin level stiffnesses, card against CPU
+REPRO_RUNS, REPRO_ITERS = ("mbb300", "c3d_256"), 20
+ENVELOPE_GRID, ENVELOPE_FIELDS = (64, 32, 32), 2
+THROUGHPUT_CONFIG, THROUGHPUT_STEPS = "cheb2_mgl2", 21
+VALIDATE_DIMS, VALIDATE_STEPS, VALIDATE_RANKS = (32, 16, 16), 2, 4
+
+
+def validate_local_shapes() -> dict:
+    """The local blocks of VALIDATE_DIMS on validate_2d's VALIDATE_RANKS
+    slabs and (VALIDATE_RANKS/2) x 2 pencils."""
+    nx, ny, nz = VALIDATE_DIMS
+    r = VALIDATE_RANKS
+    return {"validate slab": (nx // r, ny, nz),
+            "validate pencil": (nx // (r // 2), ny // 2, nz)}
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 # both off the tensor cores, where the kernels' FMAs run: float32 on the CUDA
@@ -281,15 +314,22 @@ def port_modules() -> types.SimpleNamespace:
                                    multigrid, simulator)
     from ndr_tpu_torch.io import problem
     from ndr_tpu_torch.ops import filters
+    from ndr_tpu_torch.ops import volume
+    from ndr_tpu_torch.parallel import dryrun, validate_2d
     from ndr_tpu_torch.training import neural, train_cl, train_voxelfem, train_xdg
-    from ndr_tpu_torch.utils import profile_oc, torch_setup
+    from ndr_tpu_torch.utils import (mg_benchmark, neural_throughput, profile_oc, reproduce,
+                                     timers, torch_setup)
     return types.SimpleNamespace(kernels=kernels, mg=multigrid, simulator=simulator,
                                  problem=problem, train_voxelfem=train_voxelfem,
                                  train_xdg=train_xdg, torch_setup=torch_setup,
                                  eval_fourfeat=eval_fourfeat, eval_voxelfem=eval_voxelfem,
                                  filters=filters, profile_oc=profile_oc, grid=grid,
                                  element=element, hom=homogenization, ms=microstructure,
-                                 train_cl=train_cl, models=models, neural=neural)
+                                 train_cl=train_cl, models=models, neural=neural,
+                                 volume=volume, dryrun=dryrun, validate_2d=validate_2d,
+                                 mg_benchmark=mg_benchmark,
+                                 neural_throughput=neural_throughput, reproduce=reproduce,
+                                 timers=timers)
 
 
 def gpu_line() -> str:
@@ -565,10 +605,14 @@ def phase_kernels(m):
             library=(lambda: (stencil_csr(kernels, g, S64), u64.reshape(-1)))
             if timed else None)
 
-    # the hierarchies the paths build: every level but the coarsest (factored)
-    path_levels = {GRID: MGL, BENCH_GRID: 2, MBB_GRID: 2}
+    # the hierarchies the paths build: every level but the coarsest
+    # (factored); paths 24-30 add entry()'s grid (mgl=1: the fine level
+    # alone), the envelope's and reproduce c3d_256's (the production grid)
+    path_levels = {GRID: MGL, BENCH_GRID: 2, MBB_GRID: 2, m.dryrun.ENTRY_DIMS: 1,
+                   ENVELOPE_GRID: 3, PROD_GRID: PROD_MGL}
+    tool_shapes = [(PROB, m.dryrun.ENTRY_DIMS), (PROB, ENVELOPE_GRID), (PROB, PROD_GRID)]
     rng = np.random.default_rng(0)
-    for prob_path, dims in TEST_SHAPES + [(MBB, MBB_GRID), (PROB, GRID)]:
+    for prob_path, dims in TEST_SHAPES + [(MBB, MBB_GRID), (PROB, GRID)] + tool_shapes:
         timed = dims in (GRID, BENCH_GRID)
         prob, grid = m.simulator.problem_from_config(
             m.problem.load_problem(prob_path), dims=dims, device=dev)
@@ -603,7 +647,9 @@ def phase_kernels(m):
                 print(f"    its design also moves a face-partials scratch of "
                       f"{scratch / 1e6:.1f} MB (slab {slab}, tile {ty}x{tz}), "
                       f"at most once each way: <= {(io_bytes + 2 * scratch) / 1e6:.1f} MB")
-        if not timed:  # a random stack on the grid itself (any shape, coarsenable or not)
+        if not timed and dims != PROD_GRID:
+            # a random stack on the grid itself (any shape, coarsenable or
+            # not; at PROD_GRID it would take 29 GB: its levels follow)
             ke = torch.tensor(rng.standard_normal(grid.dims + (d, d)),
                               dtype=torch.float32, device=dev)
             cached(ke, grid, f"random Ke {dims}", False, ke.double())
@@ -625,11 +671,15 @@ def phase_kernels(m):
         del ke, ke64
         torch.cuda.empty_cache()
 
-    # the sharded solver's local grids (path 21): each rank's level 0 and
-    # float64 residual launch the flat32 pair on its block of GRID
-    prob, grid = m.simulator.problem_from_config(m.problem.load_problem(PROB), dims=GRID,
-                                                 device=dev)
-    for kind, local in LOCAL_SHAPES.items():
+    # the sharded solver's local grids (paths 21 and 30): each rank's level
+    # 0 and float64 residual launch the flat32 pair on its block of GRID
+    # (timed) and of VALIDATE_DIMS (4 slabs, 2x2 pencils)
+    local_shapes = [(kind, GRID, local, True) for kind, local in LOCAL_SHAPES.items()]
+    local_shapes += [(kind, VALIDATE_DIMS, local, False)
+                     for kind, local in validate_local_shapes().items()]
+    for kind, of, local, timed in local_shapes:
+        prob, grid = m.simulator.problem_from_config(m.problem.load_problem(PROB), dims=of,
+                                                     device=dev)
         g = grid.with_dims(local)
         u = torch.tensor(1e3 * rng.standard_normal(g.nodes_per_dim + (3,)), device=dev)
         young = prob.young(torch.tensor(rng.uniform(1e-3, 1.0, local), device=dev))
@@ -638,8 +688,9 @@ def phase_kernels(m):
             args = (u.to(dt), young.to(dt), prob.K0.to(dt))
             io_bytes, flops = fine_cost(g, dt)
             run(name, getattr(kernels, name), kernels.apply_k_fine_plain, args, g,
-                TOL_F32 if dt == torch.float32 else TOL_F64, f"{kind} {local} of {GRID}",
-                cost=(io_bytes, flops, dt), library=fine_csr(kernels, args, g))
+                TOL_F32 if dt == torch.float32 else TOL_F64, f"{kind} {local} of {of}",
+                cost=(io_bytes, flops, dt) if timed else None,
+                library=fine_csr(kernels, args, g) if timed else None)
         del u, young
         torch.cuda.empty_cache()
     return worst, records
@@ -1279,6 +1330,133 @@ def sharded_path(shards):
     return results, statistics.median(res["step_seconds"][1:])
 
 
+def entry_grads_rel(grads, ref) -> float:
+    """Largest per-leaf relative difference of two gradient dicts (max|d|
+    over max|ref|). The last bias's exact gradient is 0 (the constrained
+    mean makes the field blind to a shift of the output), so its rounding
+    is held against the last weight's gradient instead."""
+    names = list(ref)
+    rel = 0.0
+    for name in names:
+        scale = ref[name].abs().max()
+        if name == names[-1]:
+            scale = ref[names[-2]].abs().max()
+        rel = max(rel, float((grads[name] - ref[name]).abs().max() / scale))
+    return rel
+
+
+def entry_path(m):
+    """Path 24: ``entry()``'s forward step and gradient on the card and on
+    the CPU, with the same parameters (drawn on the CPU from one seed): as
+    drawn (a near-uniform first field) and with the last layer's weights
+    scaled by 1e3 (a field that varies). Returns the summary line."""
+    lines = []
+    for scale in (1.0, 1e3):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            forward, (model, coords) = m.dryrun.entry(dev)
+            with torch.no_grad():
+                model.layers[-1].weight.mul_(scale)
+            t0 = time.perf_counter()
+            c = forward(model, coords)
+            c.backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()}
+            out[dev] = (float(c.detach()), time.perf_counter() - t0, grads)
+        (c_gpu, t_gpu, g_gpu), (c_cpu, _, g_cpu) = out["cuda"], out["cpu"]
+        finite = all(bool(torch.isfinite(g).all()) for g in g_gpu.values())
+        rel = abs(c_gpu - c_cpu) / abs(c_cpu)
+        rel_g = entry_grads_rel(g_gpu, g_cpu)
+        check(math.isfinite(c_gpu) and c_gpu > 0 and finite,
+              f"entry() x{scale:g}: compliance {c_gpu}, gradient finite {finite}")
+        check(rel <= TOL_ENTRY, f"entry() x{scale:g} card against CPU: rel {rel:.3e} "
+              f"> {TOL_ENTRY:g}")
+        check(rel_g <= TOL_ENTRY, f"entry() x{scale:g} gradient card against CPU: rel "
+              f"{rel_g:.3e} > {TOL_ENTRY:g}")
+        lines.append(f"last layer x{scale:g}: compliance {c_gpu:.6f} on the card, "
+                     f"{c_cpu:.6f} on the CPU (rel {rel:.3e}), gradients rel {rel_g:.3e}, "
+                     f"forward + backward {t_gpu:.3f} s")
+    return f"entry() {m.dryrun.ENTRY_DIMS}: " + "; ".join(lines)
+
+
+def trace_path(m):
+    """Path 25: ``timers.trace`` around ``entry()``'s forward step writes a
+    Chrome trace that holds device kernels. Returns the summary line."""
+    forward, args = m.dryrun.entry("cuda")
+    forward(*args)  # the first call builds the solver's state
+    with m.timers.trace(os.path.join(OUT_DIR, "trace")) as path:
+        forward(*args)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") == "kernel"]
+    check(device, f"trace(): {path} holds no device kernel ({len(events)} events)")
+    names = {e["name"].split("<")[0].split("(")[0] for e in device}
+    return (f"trace(): {os.path.getsize(path)} B, {len(events)} events, {len(device)} "
+            f"device kernels ({len(names)} names, e.g. {sorted(names)[:3]})")
+
+
+def leftovers_path(m):
+    """Path 26: the total-volume constraint's gradient (fp32) and the
+    Galerkin level stiffnesses (float64) at GRID, mgl=MGL, on the card
+    against the CPU. Returns the summary line."""
+    import numpy as np
+
+    rho = np.random.default_rng(26).uniform(0.05, 1.0, GRID)
+    g = {dev: m.volume.total_volume_constraint_grad(
+        torch.tensor(rho, dtype=torch.float32, device=dev), 0.3) for dev in ("cuda", "cpu")}
+    check(torch.equal(g["cuda"].cpu(), g["cpu"]), "total_volume_constraint_grad differs")
+    kes = {}
+    for dev in ("cuda", "cpu"):
+        prob, _ = m.simulator.problem_from_config(m.problem.load_problem(PROB), dims=GRID,
+                                                  dtype=torch.float64, device=dev)
+        kes[dev] = m.mg.build_level_stiffness(m.mg.build_mg_config(prob, MGL),
+                                              prob.young(torch.tensor(rho, device=dev)))
+    check(len(kes["cuda"]) == MGL, f"build_level_stiffness: {len(kes['cuda'])} levels")
+    rels = [errors(a.cpu(), b)[1] for a, b in zip(kes["cuda"], kes["cpu"])]
+    check(max(rels) <= TOL_LEVEL_KE, f"build_level_stiffness card against CPU: {rels}")
+    return (f"total_volume_constraint_grad {GRID}: equal on card and CPU; "
+            f"build_level_stiffness {GRID} mgl={MGL} float64 levels "
+            f"{[tuple(k.shape[:3]) for k in kes['cuda']]}: rel to the CPU {rels}")
+
+
+def reproduce_path(m):
+    """Path 27: ``reproduce --only mbb300,c3d_256 --iter 20`` on the card:
+    each run's compliances finite, its CG iterations under the cap, its
+    JSON record printed. Returns the records."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)), captured_stderr():
+        records = m.reproduce.main(["--only", ",".join(REPRO_RUNS), "--iter",
+                                    str(REPRO_ITERS), "--device", "cuda", "--out",
+                                    os.path.join(OUT_DIR, "reproduce")])
+    lines = [json.loads(l) for l in buf.getvalue().strip().splitlines()]
+    check([r["jid"] for r in lines] == list(REPRO_RUNS), f"reproduce printed {lines}")
+    for r in records:
+        check(r["steps"] == REPRO_ITERS, f"reproduce {r['jid']}: {r['steps']} steps")
+        for k in ("compliance", "binary_compliance", "last_step_compliance"):
+            check(math.isfinite(r[k]) and r[k] > 0, f"reproduce {r['jid']}: {k} {r[k]}")
+        cg = r["cg_iters"]
+        check(cg["max"] < cg["cap"] and not cg["passes_at_cap"],
+              f"reproduce {r['jid']}: cg_iters {cg}")
+        # the counts of each run (reproduce sets them to 0 before each)
+        for k in ("apply_k_fine_f32", "apply_k_fine_f64", "apply_k_cached_f32"):
+            check(r["launches"].get(k, 0) > 0, f"reproduce {r['jid']}: {k} not launched")
+    return records
+
+
+def envelope_path(m):
+    """Path 28: the MG envelope sweep at ENVELOPE_GRID, refined, kernels on:
+    18 operating points, each mean compliance error within 10 x its tol.
+    Returns the rows."""
+    rows = m.mg_benchmark.sweep(ENVELOPE_GRID, ENVELOPE_FIELDS, 3, refined=True,
+                                use_kernels=True, device="cuda",
+                                emit=lambda r: print(json.dumps(r)))
+    check(len(rows) == 18, f"mg_benchmark: {len(rows)} operating points")
+    for r in rows:
+        check(r["c_err_mean"] <= 10 * r["tol"], f"mg_benchmark: {r}")
+    return rows
+
+
 def agree(label: str, a: float, b: float):
     rel = abs(a - b) / abs(b)
     print(f"{label}: {a} vs {b}, rel {rel:.3e}")
@@ -1686,10 +1864,86 @@ def main():
                        f"{results[0]['compliance']:.6f}, classic 1-D "
                        f"{results[0]['classic 1-D']:.6f}, 2-D {results[0]['classic 2-D']:.6f}, "
                        f"wall {time.perf_counter() - t0:.2f} s")
+
+        fine = ("apply_k_fine_f32", "apply_k_fine_f64")
+        print(f"== 27. entry(): the forward step at {m.dryrun.ENTRY_DIMS}, card against CPU")
+        line, counts, _ = run_path(m, "entry", lambda: entry_path(m), fine)
+        total = {k: total[k] + counts[k] for k in total}
+        timings.append(line)
+        print(line)
+
+        print("== 28. trace(): entry()'s forward step traced")
+        line, counts, _ = run_path(m, "trace", lambda: trace_path(m), fine)
+        total = {k: total[k] + counts[k] for k in total}
+        timings.append(line)
+        print(line)
+
+        print(f"== 29. total_volume_constraint_grad and build_level_stiffness at {GRID}, "
+              f"card against CPU")
+        timings.append(leftovers_path(m))
+        print(timings[-1])
+
+        print(f"== 30. reproduce --only {','.join(REPRO_RUNS)} --iter {REPRO_ITERS}")
+        repro, _, _ = run_path(m, "reproduce (its last run)", lambda: reproduce_path(m),
+                               fine + ("apply_k_cached_f32", "cached_stencil"))
+        for r in repro:
+            total = {k: total[k] + r["launches"].get(k, 0) for k in total}
+            timings.append(
+                f"reproduce {r['jid']} ({REPRO_ITERS} steps): final {r['compliance']:.6f}, "
+                f"binary {r['binary_compliance']:.6f}, last step "
+                f"{r['last_step_compliance']:.6f}, s/OC-iter (median of steps 1-) "
+                f"{r['s_per_step']['median of steps 1-']:.4f}, cg_iters {r['cg_iters']}, "
+                f"peak {r['peak_gib']:.2f} GiB, launches {r['launches']}")
+            print(timings[-1])
+
+        print(f"== 31. mg_benchmark --fields {ENVELOPE_FIELDS} --refined --kernels on at "
+              f"{ENVELOPE_GRID}")
+        t0 = time.perf_counter()
+        rows, counts, _ = run_path(m, "mg_benchmark", lambda: envelope_path(m),
+                                   fine + ("apply_k_cached_f32", "cached_stencil"))
+        total = {k: total[k] + counts[k] for k in total}
+        loosest = max(rows, key=lambda r: r["c_err_mean"] / r["tol"])
+        timings.append(f"mg_benchmark {ENVELOPE_GRID} {ENVELOPE_FIELDS} fields refined: 18 "
+                       f"points in {time.perf_counter() - t0:.2f} s, worst c_err / tol "
+                       f"{loosest['c_err_mean'] / loosest['tol']:.3e} at {loosest}")
+        print(timings[-1])
+
+        print(f"== 32. neural_throughput {THROUGHPUT_STEPS} {THROUGHPUT_CONFIG}")
+        res, counts, peak = run_path(
+            m, "neural_throughput",
+            lambda: m.neural_throughput.measure(THROUGHPUT_CONFIG, THROUGHPUT_STEPS, "cuda"),
+            fine + ("apply_k_cached_f32", "cached_stencil"))
+        total = {k: total[k] + counts[k] for k in total}
+        check(math.isfinite(res["compliance"]) and res["windows"]
+              and res["windows"][0]["cg_iters_mean"] < CG_CAP,
+              f"neural_throughput: {res}")
+        timings.append(f"neural_throughput {THROUGHPUT_CONFIG} {THROUGHPUT_STEPS} steps: "
+                       f"{res['it_per_s']:.2f} it/s, window {res['windows']}, "
+                       f"peak {peak:.2f} GiB")
+
+        print(f"== 33. validate_2d --dims {','.join(map(str, VALIDATE_DIMS))} --steps "
+              f"{VALIDATE_STEPS} --ranks {VALIDATE_RANKS} --backend gloo")
+        t0 = time.perf_counter()
+        res, counts, _ = run_path(
+            m, "validate_2d unsharded",
+            lambda: m.validate_2d.validate(VALIDATE_DIMS, VALIDATE_STEPS, 3, VALIDATE_RANKS,
+                                           "cuda", "gloo"), fine)
+        total = {k: total[k] + counts[k] for k in total}
+        for name, run in res["runs"].items():
+            if name != "unsharded":  # the ranks' own counts; rank 0's run
+                print(f"[validate_2d {name} rank 0] launches {run['launches']}")
+                for k in fine:
+                    check(run["launches"][k] > 0, f"validate_2d {name}: rank 0 launched no {k}")
+                total = {k: total[k] + run["launches"][k] for k in total}
+        timings.append(f"validate_2d {VALIDATE_DIMS} {VALIDATE_STEPS} steps, {VALIDATE_RANKS} "
+                       f"ranks on one card (gloo): max rel errors {res['errors']}, walls "
+                       f"{ {k: round(v['seconds'], 2) for k, v in res['runs'].items()} } s, "
+                       f"{time.perf_counter() - t0:.2f} s in all")
+        print(timings[-1])
     finally:
         shutil.rmtree(OUT_DIR, ignore_errors=True)
 
-    print("== 27. summary")
+    print("== 34. summary")
     print("launches over the paths:", total)
     for name, n in total.items():
         check(n > 0, f"{name} was launched by no path")

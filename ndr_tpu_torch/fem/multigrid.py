@@ -55,10 +55,13 @@ SMOOTHERS = ("gs", "chebyshev")
 #: Storage types of the intermediate cached levels (``cached_ke_dtype``).
 CACHED_KE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
-#: Counts since the last :func:`reset_stats`: hierarchy builds, and the
-#: preconditioner's CUDA graphs (captures, replays, capture seconds).
+#: Counts since the last :func:`reset_stats`: hierarchy builds, the
+#: preconditioner's CUDA graphs (captures, replays, capture seconds), and
+#: the CG passes that stopped at their iteration cap (``cg_iter``) rather
+#: than at the tolerance.
 stats: Dict[str, float] = {"hierarchy_builds": 0, "graph_captures": 0,
-                           "graph_replays": 0, "graph_capture_seconds": 0.0}
+                           "graph_replays": 0, "graph_capture_seconds": 0.0,
+                           "cg_passes_at_cap": 0}
 
 
 def reset_stats() -> None:
@@ -317,6 +320,13 @@ def build_level_ke(cfg: MGConfig, young: torch.Tensor, level: int) -> torch.Tens
     pooled = pooled_young(young, level)                        # (dims_l..., R)
     Ke = pooled.reshape(-1, C.shape[0]) @ C.reshape(C.shape[0], d * d)
     return Ke.reshape(pooled.shape[:-1] + (d, d))
+
+
+def build_level_stiffness(cfg: MGConfig, young: torch.Tensor) -> List[torch.Tensor]:
+    """Per-element stiffness matrices ``Ke[l]`` of levels 1..L, shapes
+    (dims_l..., d, d), from the fine Young field (reference:
+    updateElementStiffnessMatrices + buildPESCoarse)."""
+    return [build_level_ke(cfg, young, l) for l in range(1, cfg.num_levels)]
 
 
 def build_level_ke_diag(cfg: MGConfig, young: torch.Tensor, level: int) -> torch.Tensor:
@@ -1159,9 +1169,11 @@ def mgpcg_solve(
     if u0 is None or settings.zero_init:
         u0 = torch.zeros_like(b)
     u0 = _zero_dirichlet(lv0, u0.to(b.dtype))
-    return solvers.conjugate_gradient(
+    u, iters = solvers.conjugate_gradient(
         apply_a, b, u0, tol=settings.tol, max_iter=settings.cg_iter,
         precond=precond)
+    stats["cg_passes_at_cap"] += iters >= settings.cg_iter
+    return u, iters
 
 
 def _mgpcg_solve_refined(
@@ -1220,6 +1232,7 @@ def _mgpcg_solve_refined(
             tol=inner_tol, max_iter=settings.cg_iter, precond=precond32,
         )
         u = u + e32.to(f64)
+        stats["cg_passes_at_cap"] += iters >= settings.cg_iter
         # an unclipped target means the correction solve's own stop test
         # already implies the outer tolerance: no float64 residual needed
         done = 0.5 * needed >= fp32_floor

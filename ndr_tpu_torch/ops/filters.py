@@ -46,9 +46,13 @@ class ProjectionFilter(Filter):
         return 0.5 * (t + torch.tanh(b * (x - 0.5))) / t
 
 
-def _box_pool(x: torch.Tensor, r: int, **kwargs) -> torch.Tensor:
+def _box_sum(x: torch.Tensor, r: int) -> torch.Tensor:
+    """The sum over the in-bounds part of the radius-r cube around each
+    cell. The zero padding is explicit: torch's pools refuse a window wider
+    than the unpadded field (a radius-2 filter on a 4-cell axis)."""
     pool = {2: F.avg_pool2d, 3: F.avg_pool3d}[x.ndim]
-    return pool(x[None, None], kernel_size=2 * r + 1, stride=1, padding=r, **kwargs)[0, 0]
+    return pool(F.pad(x, (r, r) * x.ndim)[None, None], kernel_size=2 * r + 1, stride=1,
+                divisor_override=1)[0, 0]
 
 
 class _ClippedBoxMean(torch.autograd.Function):
@@ -61,12 +65,12 @@ class _ClippedBoxMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, r):
         ctx.r = r
-        return _box_pool(x, r, count_include_pad=False)
+        return _box_sum(x, r) / _box_sum(torch.ones_like(x), r)
 
     @staticmethod
     def backward(ctx, g):
-        count = _box_pool(torch.ones_like(g), ctx.r, divisor_override=1)
-        return _box_pool(g / count, ctx.r, divisor_override=1), None
+        count = _box_sum(torch.ones_like(g), ctx.r)
+        return _box_sum(g / count, ctx.r), None
 
 
 @dataclasses.dataclass
@@ -74,9 +78,9 @@ class SmoothingFilter(Filter):
     """Cube-neighborhood mean with boundary-clipped stencils: each cell
     averages over the in-bounds part of the radius-r cube around it.
 
-    ``avg_pool`` with ``count_include_pad=False`` is exactly the clipped
-    window sum divided by the clipped count; the gradient is its
-    transpose (:class:`_ClippedBoxMean`)."""
+    The clipped window sum divided by the clipped count, both one
+    ``avg_pool`` over the zero-padded field; the gradient is its transpose
+    (:class:`_ClippedBoxMean`)."""
 
     radius: int = 1
 

@@ -1,7 +1,8 @@
 """Volume constraint and constraint-satisfaction operators (counterpart of
 ``ndr_tpu/ops/volume.py``).
 
-  * :func:`total_volume_constraint` — c = 1 - mean(rho)/v_max.
+  * :func:`total_volume_constraint` — c = 1 - mean(rho)/v_max, and its
+    constant gradient :func:`total_volume_constraint_grad`.
   * :func:`find_root` — bisection for the shift b such that
     mean(projection(x + b)) == target, with the implicit-function
     gradient as a ``torch.autograd.Function``.
@@ -27,6 +28,11 @@ _BISECT_WIDTH = 1e-12
 def total_volume_constraint(rho: torch.Tensor, max_volume: float) -> torch.Tensor:
     """c = 1 - mean(rho) / v_max  (>= 0 feasible, 0 when active)."""
     return 1.0 - torch.mean(rho) / max_volume
+
+
+def total_volume_constraint_grad(rho: torch.Tensor, max_volume: float) -> torch.Tensor:
+    """Constant gradient -1/(v_max * N_e)."""
+    return torch.full_like(rho, -1.0 / (max_volume * rho.numel()))
 
 
 def logit(p: torch.Tensor) -> torch.Tensor:

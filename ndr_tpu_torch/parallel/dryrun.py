@@ -1,5 +1,11 @@
-"""A multi-rank dry run of the sharded paths (counterpart of
+"""The single-card forward check and a multi-rank dry run of the sharded
+paths (counterparts of ``__graft_entry__.entry`` and
 ``__graft_entry__.dryrun_multichip``).
+
+:func:`entry` returns the flagship model's forward step and its example
+arguments: the Fourier-feature MLP density field at the cantilever
+16x8x8, the constrained-mean sigmoid, one MGPCG solve (mgl=1, Chebyshev,
+tol 1e-4, at most 30 CG iterations) and the compliance.
 
 :func:`dryrun_multichip` starts ``n`` ranks (:func:`launch.spawn`) and runs
 on each, with the JAX entry's configuration:
@@ -37,6 +43,43 @@ from ndr_tpu_torch.utils.torch_setup import setup
 
 PROB = "problems/3d/cantilever_flexion.json"
 CLASSIC_DIMS = (32, 16, 16)
+ENTRY_DIMS = (16, 8, 8)
+
+
+def _entry_model(cfg, device):
+    """The JAX entry's network (64 features, 128 x 3, sigma 1) with the
+    homogeneous init, its parameters drawn from ``torch.Generator`` seed 0."""
+    mcfg = mlp.MLPConfig(in_features=3, out_features=1, n_neurons=128, n_layers=3,
+                         embedding_size=64, scale=1.0)
+    return mlp.homogeneous_init(
+        mlp.init_mlp(mcfg, torch.Generator().manual_seed(0), device=device),
+        cfg.max_volume)
+
+
+def entry(device="cuda"):
+    """The single-card forward step on the flagship model: Fourier-feature
+    MLP density field -> constrained-mean sigmoid -> one MGPCG solve ->
+    2 x compliance (differentiable in the network's parameters through
+    the closed-form adjoint). Returns ``(forward, (model, coords))``;
+    ``forward(model, coords)`` gives a 0-d tensor."""
+    from ndr_tpu_torch.fem import multigrid as mg
+
+    setup()
+    device = torch.device(device)
+    cfg = load_problem(PROB)
+    prob, grid = problem_from_config(cfg, dims=ENTRY_DIMS, dtype=torch.float32,
+                                     device=device)
+    solve = mg.make_mg_solver(prob, mg.MGSolverSettings(
+        num_levels=1, cg_iter=30, tol=1e-4, smoother="chebyshev"))
+
+    def forward(model, coords):
+        rho = vol.sigmoid_with_constrained_mean(mlp.mlp_apply(model, coords)[..., 0],
+                                                cfg.max_volume)
+        with torch.no_grad():
+            u, _ = solve(rho.detach(), None)
+        return 2.0 * topopt.compliance_with_adjoint(rho, u, prob)
+
+    return forward, (_entry_model(cfg, device), get_mgrid(grid.dims, device=device))
 
 
 def dryrun_rank(device, n: int) -> dict:
@@ -48,11 +91,7 @@ def dryrun_rank(device, n: int) -> dict:
     cfg = load_problem(PROB)
     prob, grid = problem_from_config(cfg, dims=(8 * n, 8, 8), dtype=torch.float32,
                                      device=device)
-    mcfg = mlp.MLPConfig(in_features=3, out_features=1, n_neurons=128, n_layers=3,
-                         embedding_size=64, scale=1.0)
-    model = mlp.homogeneous_init(
-        mlp.init_mlp(mcfg, torch.Generator().manual_seed(0), device=device),
-        cfg.max_volume)
+    model = _entry_model(cfg, device)
     coords = get_mgrid(grid.dims, device=device)
     solve = pmesh.make_sharded_solver(prob, n, num_levels=2, tol=1e-5, max_iter=100,
                                       mixed_precision=False)

@@ -99,7 +99,7 @@ def _resolve(name: str) -> Callable:
     return obj
 
 
-def spawn(fn: Union[str, Callable], world: int, *, device="cpu",
+def spawn(fn: Union[str, Callable], world: int, *, device="cuda",
           backend: Optional[str] = None, kwargs: Optional[dict] = None,
           timeout: float = 900.0, threads: Optional[int] = None,
           echo: bool = False) -> List[Any]:
@@ -110,8 +110,9 @@ def spawn(fn: Union[str, Callable], world: int, *, device="cpu",
     ``"module:qualname"``). Each rank is ``python -m
     ndr_tpu_torch.parallel.launch`` with the checkout on its
     ``PYTHONPATH``, joins a group over a ``FileStore`` and gets its device
-    from :func:`rank_device`; ``threads`` sets each rank's torch threads
-    (default: the CPU count over ``world``). A rank that fails ends the
+    from :func:`rank_device` (the card unless ``device="cpu"``);
+    ``threads`` sets each rank's torch threads (default: the CPU count
+    over ``world``). A rank that fails ends the
     others and raises with its output; ``echo`` prints rank 0's output
     after a success. Every process started here has ended on return."""
     backend = backend or default_backend(device)

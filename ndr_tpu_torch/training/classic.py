@@ -54,6 +54,18 @@ class ClassicResult:
     solver_stats: dict = dataclasses.field(default_factory=dict)
     # LBFGS: objective + gradient evaluations (one solve each)
     evaluations: int = 0
+    # OC: the CG iterations of each step's solve (summed over its
+    # refinement passes), and how many of its passes stopped at the CG cap
+    # (``multigrid.stats["cg_passes_at_cap"]``)
+    cg_iters: List[int] = dataclasses.field(default_factory=list)
+    cg_passes_at_cap: List[int] = dataclasses.field(default_factory=list)
+
+
+def default_cg_iter(grid) -> int:
+    """The CG cap per solve when none is given: 100 for MGPCG, 2000 for
+    the block-Jacobi PCG of a grid that cannot coarsen (far more, much
+    cheaper iterations)."""
+    return 2000 if mg.max_feasible_coarsenings(grid) == 0 else 100
 
 
 def ground_truth_topopt(
@@ -131,10 +143,7 @@ def ground_truth_topopt(
         log(f"Stiffness applies: {solve.description}\n")
     elif use_multigrid:
         if cg_iter is None:
-            # un-coarsenable grids degrade to block-Jacobi PCG, which
-            # needs far more (much cheaper) iterations
-            cg_iter = (2000 if mg.max_feasible_coarsenings(grid) == 0
-                       else 100)
+            cg_iter = default_cg_iter(grid)
         settings = mg.MGSolverSettings(
             num_levels=multigrid_levels,
             cg_iter=cg_iter,
@@ -168,6 +177,8 @@ def ground_truth_topopt(
 
     history: List[float] = []
     step_seconds: List[float] = []
+    cg_iters: List[int] = []
+    cg_passes_at_cap: List[int] = []
     use_lag = precond_lag > 1 and hasattr(solve, "build_precond")
     lag = precond_lag if use_lag else 0
 
@@ -178,6 +189,12 @@ def ground_truth_topopt(
 
     # host loop: the lagged state, its age and the first lagged CG count
     lag_state = {"precond": None, "age": 0, "it_ref": None}
+
+    def counted(step, *args, **kwargs):
+        """One OC step; its metrics also count the passes at the CG cap."""
+        n0 = mg.stats["cg_passes_at_cap"]
+        s, metrics = step(*args, **kwargs)
+        return s, dict(metrics, cg_passes_at_cap=mg.stats["cg_passes_at_cap"] - n0)
 
     def host_step(s):
         if not use_lag:
@@ -198,6 +215,8 @@ def ground_truth_topopt(
     def log_step(i, dt, metrics):
         c2 = 2.0 * metrics["compliance"]
         history.append(c2)
+        cg_iters.append(int(metrics["cg_iters"]))
+        cg_passes_at_cap.append(int(metrics["cg_passes_at_cap"]))
         if i % log_every == 0 or i == max_iter - 1:
             log(
                 f"Total Steps: {i}, Runtime: {dt:.2f}, Compliance loss "
@@ -239,8 +258,8 @@ def ground_truth_topopt(
                     if j % block == 0:
                         chunk_precond = build_precond(state.x, into=chunk_precond,
                                                       use_graph=device.type == "cuda")
-                    state, metrics = topopt.oc_step(top, state, m=oc_move, ctol=oc_ctol,
-                                                    precond=chunk_precond)
+                    state, metrics = counted(topopt.oc_step, top, state, m=oc_move,
+                                             ctol=oc_ctol, precond=chunk_precond)
                     chunk_metrics.append(metrics)
                 now = time.perf_counter()  # oc_step ends on host reads: synced
                 dt = (now - t_chunk) / chunk
@@ -252,7 +271,7 @@ def ground_truth_topopt(
                 boundary(idx - 1, state)
             for idx in range(idx, max_iter):
                 t_step = time.perf_counter()
-                state, metrics = host_step(state)
+                state, metrics = counted(host_step, state)
                 now = time.perf_counter()  # oc_step ends on host reads: synced
                 step_seconds.append(now - t_step)
                 log_step(idx, now - t_iter, metrics)
@@ -295,4 +314,6 @@ def ground_truth_topopt(
         step_seconds=step_seconds,
         solver_stats=solver_stats,
         evaluations=evaluations,
+        cg_iters=cg_iters,
+        cg_passes_at_cap=cg_passes_at_cap,
     )

@@ -89,6 +89,9 @@ class NeuralTOState:
     step: int
 
 
+NeuralState = NeuralTOState
+
+
 def make_density_fn(ncfg: NeuralTOConfig,
                     filters: Optional[flt.AdaptiveFilterState] = None):
     """density(model, coords, max_volume) -> field, and whether the volume
@@ -233,6 +236,8 @@ def train(
     """Single-resolution training loop (one leg of the multires loop).
     ``aux["step_seconds"]`` holds each step's wall time, the device
     synchronized at its end (chunked steps: the chunk's wall / chunk);
+    ``aux["cg_iters"]`` each step's CG iterations and
+    ``aux["cg_passes_at_cap"]`` its passes that stopped at the CG cap;
     ``aux["solver_stats"]`` the ``multigrid.stats`` of the loop."""
     state, train_step, aux = build_trainer(cfg, ncfg, dims=dims, filters=filters,
                                            dtype=dtype, device=device, state=state)
@@ -240,10 +245,20 @@ def train(
     build_pc = aux["build_precond_from_state"]
     history: List[float] = []
     step_seconds: List[float] = []
+    cg_iters: List[int] = []
+    cg_passes_at_cap: List[int] = []
+
+    def counted_step(state, precond):
+        """One training step; its metrics also count the passes at the CG cap."""
+        n0 = mg.stats["cg_passes_at_cap"]
+        state, metrics = train_step(state, precond=precond)
+        return state, dict(metrics, cg_passes_at_cap=mg.stats["cg_passes_at_cap"] - n0)
 
     def log_step(i, step_no, metrics):
         c = float(metrics["compliance"])
         history.append(c)
+        cg_iters.append(int(metrics["cg_iters"]))
+        cg_passes_at_cap.append(int(metrics["cg_passes_at_cap"]))
         if i % log_every == 0 or i == max_iter - 1:
             log(
                 f"Total Steps: {step_no}, Compliance loss {c:.6f}, "
@@ -268,7 +283,7 @@ def train(
                 if j % block == 0:
                     precond = build_pc(state, into=precond,
                                        use_graph=device.type == "cuda")
-                state, metrics = train_step(state, precond=precond)
+                state, metrics = counted_step(state, precond)
                 chunk_metrics.append(metrics)
             # one read-back per chunk
             chunk_metrics = [{k: float(v) for k, v in m.items()} for m in chunk_metrics]
@@ -288,7 +303,7 @@ def train(
         t_step = time.perf_counter()
         if lag and i % lag == 0:
             precond = build_pc(state)
-        state, metrics = train_step(state, precond=precond)
+        state, metrics = counted_step(state, precond)
         if filters is not None:
             filters.update(i)  # per-step schedule update
         _sync(device)
@@ -304,6 +319,8 @@ def train(
         f"({max_iter / max(t1 - t0, 1e-9):.2f} it/s; steady-state "
         f"{max(max_iter - n_warm, 1) / max(t1 - t_warm, 1e-9):.2f} it/s)\n")
     aux["step_seconds"] = step_seconds
+    aux["cg_iters"] = cg_iters
+    aux["cg_passes_at_cap"] = cg_passes_at_cap
     aux["solver_stats"] = {k: mg.stats[k] - v for k, v in stats0.items()}
     return state, history, aux
 
@@ -333,6 +350,8 @@ def train_multires(
     aspect = np.asarray(cfg.domain_corners[1])
     history_all: List[float] = []
     step_seconds: List[float] = []
+    cg_iters: List[int] = []
+    cg_passes_at_cap: List[int] = []
     solver_stats: dict = {}
     aux = None
     for idx, delta in enumerate(resolution_deltas):
@@ -349,8 +368,12 @@ def train_multires(
         )
         history_all.extend(history)
         step_seconds.extend(aux["step_seconds"])
+        cg_iters.extend(aux["cg_iters"])
+        cg_passes_at_cap.extend(aux["cg_passes_at_cap"])
         solver_stats = {k: v + solver_stats.get(k, 0)
                         for k, v in aux["solver_stats"].items()}
     aux["step_seconds"] = step_seconds
+    aux["cg_iters"] = cg_iters
+    aux["cg_passes_at_cap"] = cg_passes_at_cap
     aux["solver_stats"] = solver_stats
     return state, history_all, aux

@@ -164,6 +164,8 @@ def _run(args, cfg, dims, shards, device, dtype, rank):
                 "binary_compliance": result.binary_compliance,
                 "seconds": result.seconds,
                 "step_seconds": result.step_seconds,
+                "cg_iters": result.cg_iters,
+                "cg_passes_at_cap": result.cg_passes_at_cap,
                 "timers": timers.to_dict(),
             },
             f,

@@ -48,6 +48,9 @@ class XDGResult:
     # multigrid.stats of the training loop (hierarchy builds, CUDA-graph
     # captures and replays)
     solver_stats: dict = dataclasses.field(default_factory=dict)
+    cg_iters: List[int] = dataclasses.field(default_factory=list)  # of every step
+    # every step's CG passes that stopped at the cap
+    cg_passes_at_cap: List[int] = dataclasses.field(default_factory=list)
 
 
 def main(argv=None) -> XDGResult:
@@ -246,11 +249,14 @@ def main(argv=None) -> XDGResult:
             "final_compliance": c_final,
             "binary_compliance": c_binary,
             "step_seconds": aux["step_seconds"],
+            "cg_iters": aux["cg_iters"],
+            "cg_passes_at_cap": aux["cg_passes_at_cap"],
         }, f)
     return XDGResult(history=history, step_seconds=aux["step_seconds"],
                      final_compliance=c_final, binary_compliance=c_binary,
                      binary_volume=b_vol, densities=rho,
-                     solver_stats=aux["solver_stats"])
+                     solver_stats=aux["solver_stats"], cg_iters=aux["cg_iters"],
+                     cg_passes_at_cap=aux["cg_passes_at_cap"])
 
 
 if __name__ == "__main__":

@@ -3,11 +3,13 @@
 Wall-clock timers for host-side phases. CUDA work is asynchronous, so a
 section synchronizes the card before it stops its clock when CUDA is in
 use; the numbers then include the device work the section enqueued.
+:func:`trace` records an on-device timeline with ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict
@@ -97,3 +99,26 @@ stop_timer_section = _default.stop_timer_section
 section = _default.section
 to_dict = _default.to_dict
 report = _default.report
+
+
+@contextlib.contextmanager
+def trace(logdir: str, device="cuda"):
+    """``torch.profiler`` trace context for on-device timelines (the JAX
+    package's ``jax.profiler`` trace): records the host and, for a CUDA
+    ``device``, the card; on exit synchronizes the card and writes a Chrome
+    trace under ``logdir``. Yields the path of that file.
+
+        with timers.trace("build/trace") as path:
+            solve(rho)
+    """
+    device = torch.device(device)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    with torch.profiler.profile(activities=activities) as prof:
+        yield path
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(path)

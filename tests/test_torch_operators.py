@@ -56,7 +56,9 @@ def test_port_imports_without_jax():
     memory modules, homogenization and microstructure design, the
     continual-learning trainer, the model zoo, datasets, history, the
     sharded solver with its launcher, checks and dry run, the native IO,
-    the plots and chip_smoke's imports load neither JAX, optax nor any
+    the plots, the reproduction and measurement tools (reproduce,
+    mg_benchmark, neural_throughput, validate_2d) and chip_smoke's
+    imports load neither JAX, optax nor any
     module of the JAX package; nor matplotlib, which the plots import
     when they draw."""
     code = ("import sys, ndr_tpu_torch.training.train_xdg, "
@@ -73,6 +75,8 @@ def test_port_imports_without_jax():
             "ndr_tpu_torch.parallel.mesh, ndr_tpu_torch.parallel.launch, "
             "ndr_tpu_torch.parallel.checks, ndr_tpu_torch.parallel.dryrun, "
             "ndr_tpu_torch.io.native, ndr_tpu_torch.utils.visualizations, "
+            "ndr_tpu_torch.utils.mg_benchmark, ndr_tpu_torch.utils.neural_throughput, "
+            "ndr_tpu_torch.utils.reproduce, ndr_tpu_torch.parallel.validate_2d, "
             "chip_smoke; "
             "chip_smoke.port_modules(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
