@@ -79,6 +79,7 @@ import torch
 
 from ndr_tpu_torch.grid import Grid
 from ndr_tpu_torch.fem import operators as ops
+from ndr_tpu_torch.utils import timers
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ndr_tpu_torch"
@@ -135,6 +136,7 @@ def add_launches(counts: Dict[str, int], times: int = 1) -> None:
 # Build and load
 # ---------------------------------------------------------------------------
 
+@timers.span("setup.kernels")
 def build() -> float:
     """Compile (if not yet built for these sources) and load the kernel
     library; returns the seconds it took. Raises if ``nvcc`` is missing
@@ -314,7 +316,7 @@ def reflection_blocks(K0: torch.Tensor, ndim: int,
     B = M[rows, cols]                                  # (2^N, N, N)
     off = M.clone()
     off[rows, cols] = 0.0
-    rel = float(off.abs().max() / M.abs().max())
+    rel = timers.read(off.abs().max() / M.abs().max())
     if rel > REFLECTION_TOL[dtype]:
         raise ValueError(
             f"K0 is not invariant under the element's reflections (coupling "

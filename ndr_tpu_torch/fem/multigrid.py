@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -50,23 +49,29 @@ from ndr_tpu_torch.fem import kernels
 from ndr_tpu_torch.fem import operators as ops
 from ndr_tpu_torch.fem import solvers
 from ndr_tpu_torch.fem.simulator import FEMProblem
+from ndr_tpu_torch.utils import timers
 
 SMOOTHERS = ("gs", "chebyshev")
 #: Storage types of the intermediate cached levels (``cached_ke_dtype``).
 CACHED_KE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
-#: Counts since the last :func:`reset_stats`: hierarchy builds, the
-#: preconditioner's CUDA graphs (captures, replays, capture seconds), and
-#: the CG passes that stopped at their iteration cap (``cg_iter``) rather
-#: than at the tolerance.
-stats: Dict[str, float] = {"hierarchy_builds": 0, "graph_captures": 0,
-                           "graph_replays": 0, "graph_capture_seconds": 0.0,
-                           "cg_passes_at_cap": 0}
+#: The port's counter registry (``timers.counters``, the same dict): here,
+#: since the last :func:`reset_stats`, hierarchy builds, the
+#: preconditioner's CUDA graphs (captures, replays, capture seconds, the
+#: latter the ``mg.graph_capture`` span's), the CG iterations of every pass
+#: (``cg_iters``) and the passes that stopped at their iteration cap
+#: (``cg_iter``) rather than at the tolerance; beside them the spans'
+#: times and the other counters of the port.
+stats: Dict[str, float] = timers.counters
+for _k, _zero in (("hierarchy_builds", 0), ("graph_captures", 0), ("graph_replays", 0),
+                  ("graph_capture_seconds", 0.0), ("cg_passes_at_cap", 0),
+                  ("cg_iters", 0)):
+    stats.setdefault(_k, _zero)
 
 
 def reset_stats() -> None:
-    for k in stats:
-        stats[k] = 0.0 if k == "graph_capture_seconds" else 0
+    """Zero the registry in place (:func:`timers.reset`)."""
+    timers.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +240,7 @@ class MGConfig:
         return "cached" if self.ke_bytes(level) <= self.ke_cache_limit_bytes else "transfer"
 
 
+@timers.span("setup.mg_config")
 def build_mg_config(prob: FEMProblem, num_levels: int,
                     ke_cache_limit_bytes: int = 1400 * 2**20) -> MGConfig:
     """Build the static hierarchy for `num_levels` coarsenings."""
@@ -442,6 +448,7 @@ def _zero_dirichlet(lv: LevelState, u: torch.Tensor) -> torch.Tensor:
     return u.masked_fill(lv.dirichlet_mask, 0.0)
 
 
+@timers.span("mg.hierarchy_build")
 def build_level_states(
     cfg: MGConfig, prob: FEMProblem, young: torch.Tensor,
     smoother: str = "chebyshev", use_kernels: bool = False,
@@ -530,7 +537,7 @@ def build_level_states(
             if power_iters <= 0:
                 lv.lmax = bound
                 continue
-            est = float((1.2 / 1.05) * _estimate_lmax(lv, power_iters))
+            est = timers.read((1.2 / 1.05) * _estimate_lmax(lv, power_iters))
             lv.lmax = min(bound, est)
     return states
 
@@ -784,12 +791,15 @@ def _coarsest_dense_k(levels: List[LevelState]) -> torch.Tensor:
     return K
 
 
+@timers.span("mg.coarsest_factor")
 def factor_coarsest(levels: List[LevelState], method: str = "cholesky"):
     """("chol", L) with the lower Cholesky factor, or ("ns", X) with a
     Jacobi-scaled Newton–Schulz inverse."""
     K = _coarsest_dense_k(levels)
     if method == "cholesky":
-        return ("chol", torch.linalg.cholesky(K))
+        L = torch.linalg.cholesky(K)
+        timers.count("host_reads")   # the factorization reads its error code back
+        return ("chol", L)
     if method != "ns":
         raise ValueError(f"coarse solver {method!r}")
     return ("ns", ns_inverse(K))
@@ -1010,18 +1020,18 @@ class PrecondGraph:
             with torch.cuda.stream(side):
                 fn(self.r)
             torch.cuda.current_stream(dev).wait_stream(side)
-        t0 = time.perf_counter()
-        before = dict(kernels.launches)
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph):
-                self.z = fn(self.r)
-        finally:
-            self.counts = {k: kernels.launches[k] - n for k, n in before.items()}
-            kernels.add_launches(self.counts, -1)   # recorded, not launched
-        torch.cuda.synchronize(dev)
+        with timers.span("mg.graph_capture"):
+            before = dict(kernels.launches)
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(self.graph):
+                    self.z = fn(self.r)
+            finally:
+                self.counts = {k: kernels.launches[k] - n for k, n in before.items()}
+                kernels.add_launches(self.counts, -1)   # recorded, not launched
+            torch.cuda.synchronize(dev)
         stats["graph_captures"] += 1
-        stats["graph_capture_seconds"] += time.perf_counter() - t0
+        stats["graph_capture_seconds"] = stats["mg.graph_capture.s"]
 
     def _upload(self) -> None:
         # the fine kernels' constant memory is not the graph's: make it hold
@@ -1066,6 +1076,7 @@ class PrecondState:
 _STATE_FIELDS = ("young", "Ke", "Minv_rows", "Dinv", "stencil")
 
 
+@timers.span("mg.precond_build")
 def build_precond(cfg: MGConfig, prob: FEMProblem, rho: torch.Tensor,
                   settings: MGSolverSettings, into: Optional[PrecondState] = None,
                   use_graph: bool = False) -> PrecondState:
@@ -1169,11 +1180,18 @@ def mgpcg_solve(
     if u0 is None or settings.zero_init:
         u0 = torch.zeros_like(b)
     u0 = _zero_dirichlet(lv0, u0.to(b.dtype))
-    u, iters = solvers.conjugate_gradient(
-        apply_a, b, u0, tol=settings.tol, max_iter=settings.cg_iter,
-        precond=precond)
-    stats["cg_passes_at_cap"] += iters >= settings.cg_iter
+    with timers.span("mg.cg"):
+        u, iters = solvers.conjugate_gradient(
+            apply_a, b, u0, tol=settings.tol, max_iter=settings.cg_iter,
+            precond=precond)
+    _count_pass(iters, settings)
     return u, iters
+
+
+def _count_pass(iters: int, settings: MGSolverSettings) -> None:
+    """Count one CG pass's iterations, and the pass if it stopped at the cap."""
+    stats["cg_iters"] += iters
+    stats["cg_passes_at_cap"] += iters >= settings.cg_iter
 
 
 def _mgpcg_solve_refined(
@@ -1204,6 +1222,7 @@ def _mgpcg_solve_refined(
     force64 = prob.force.to(f64)
     apply64 = lv0.fine_apply64 or ops.apply_k
 
+    @timers.span("mg.residual64")
     def residual64(u):
         return _zero_dirichlet(lv0, force64 - apply64(u, young64, K0_64, lv0.grid))
 
@@ -1213,7 +1232,7 @@ def _mgpcg_solve_refined(
     precond32 = _make_preconditioner(settings, levels, coarse, precond_state)
 
     b64 = _zero_dirichlet(lv0, force64)
-    b_norm = torch.linalg.norm(b64.reshape(-1)).item()
+    b_norm = timers.read(torch.linalg.norm(b64.reshape(-1)))
     if u0 is None or settings.zero_init:
         u = torch.zeros_like(b64)
     else:
@@ -1223,16 +1242,17 @@ def _mgpcg_solve_refined(
     r = residual64(u)
     done, total_iters, k = False, 0, 0
     while not done and k < settings.max_refinements:
-        rn = max(torch.linalg.norm(r.reshape(-1)).item(), 1e-300)
+        rn = max(timers.read(torch.linalg.norm(r.reshape(-1))), 1e-300)
         needed = settings.tol * b_norm / rn
         inner_tol = torch.tensor(float(np.clip(0.5 * needed, fp32_floor, 0.9)),
                                  dtype=f32, device=u.device)
-        e32, iters = solvers.conjugate_gradient(
-            apply_a32, r.to(f32), torch.zeros(r.shape, dtype=f32, device=u.device),
-            tol=inner_tol, max_iter=settings.cg_iter, precond=precond32,
-        )
+        with timers.span("mg.cg"):
+            e32, iters = solvers.conjugate_gradient(
+                apply_a32, r.to(f32), torch.zeros(r.shape, dtype=f32, device=u.device),
+                tol=inner_tol, max_iter=settings.cg_iter, precond=precond32,
+            )
         u = u + e32.to(f64)
-        stats["cg_passes_at_cap"] += iters >= settings.cg_iter
+        _count_pass(iters, settings)
         # an unclipped target means the correction solve's own stop test
         # already implies the outer tolerance: no float64 residual needed
         done = 0.5 * needed >= fp32_floor
@@ -1271,6 +1291,7 @@ def make_mg_solver(prob: FEMProblem, settings: MGSolverSettings):
     cfg = build_mg_config(prob, nl,
                           ke_cache_limit_bytes=settings.ke_cache_limit_bytes)
 
+    @timers.span("solve")
     def solve(rho, u0=None, precond=None):
         return mgpcg_solve(cfg, prob, rho, u0, settings, precond_state=precond)
 

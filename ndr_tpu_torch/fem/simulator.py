@@ -13,6 +13,7 @@ from ndr_tpu_torch.fem import element as el
 from ndr_tpu_torch.grid import Grid
 from ndr_tpu_torch.io.problem import BoundaryConditions, ProblemConfig, load_bcs, load_material
 from ndr_tpu_torch.fem import operators as ops
+from ndr_tpu_torch.utils import timers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +95,7 @@ def build_problem(
                               E0, Emin, gamma, device=device, dtype=dtype)
 
 
+@timers.span("setup.problem")
 def problem_from_config(
     cfg: ProblemConfig, dims=None, dtype: torch.dtype = torch.float64,
     device="cuda",

@@ -14,6 +14,7 @@ import torch
 
 from ndr_tpu_torch.grid import Grid
 from ndr_tpu_torch.fem import operators as ops
+from ndr_tpu_torch.utils import timers
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -94,7 +95,7 @@ def conjugate_gradient(
     test is on the force residual relative to ||b||. ``apply_a`` must
     encode the Dirichlet projection; ``b`` and ``x0`` must be zero on
     constrained components. The stop test reads one scalar back to the
-    host per iteration.
+    host per iteration (:func:`timers.read`).
 
     Returns (x, iterations).
     """
@@ -111,7 +112,7 @@ def conjugate_gradient(
     d = torch.zeros_like(b)
     r_minv_r_old = None
     i = 0
-    while i < max_iter and bool(_dot(r, r) > thresh):
+    while i < max_iter and timers.read(_dot(r, r) > thresh):
         s = precond(r)
         r_minv_r = _dot(r, s)
         d = s if i == 0 else s + (r_minv_r / r_minv_r_old) * d
@@ -164,7 +165,7 @@ def conjugate_gradient_batched(
     k = 0
     while k < max_iter:
         active = dots(r, r) > thresh
-        if not bool(active.any()):
+        if not timers.read(active.any()):
             break
         s = precond(r)
         rmr = dots(r, s)

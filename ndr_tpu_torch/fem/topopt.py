@@ -7,7 +7,7 @@ differentiated through. Filter-chain backprop is ordinary autograd.
 
 JAX runs the OC bracket expansion and bisection as device while-loops;
 here they are host loops that read one scalar back per volume
-evaluation.
+evaluation (``oc.bisection_evals`` counts the evaluations).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from ndr_tpu_torch.fem import solvers
 from ndr_tpu_torch.fem.simulator import FEMProblem
 from ndr_tpu_torch.ops import volume as vol
 from ndr_tpu_torch.ops.filters import Filter, apply_filter_chain
+from ndr_tpu_torch.utils import timers
 
 
 # ---------------------------------------------------------------------------
@@ -120,7 +121,8 @@ class TopologyOptimizationProblem:
         ``precond``: a lagged preconditioner for the MGPCG solve
         (``solve.build_precond``)."""
         with torch.no_grad():
-            rho = self.physical_density(x)
+            with timers.span("oc.filter"):
+                rho = self.physical_density(x)
             if precond is None:
                 u, iters = self.solve(rho, u0)
             else:
@@ -186,6 +188,7 @@ def oc_state_from_numpy(state: dict, device) -> OCState:
     )
 
 
+@timers.span("oc.step")
 def oc_step(
     top: TopologyOptimizationProblem,
     state: OCState,
@@ -207,46 +210,50 @@ def oc_step(
     x0 = state.x
     st = _scalar_type(x0)
     c, u, iters = top.objective(x0, state.u, precond=precond)
-    dJ = top.objective_gradient(x0, u)
-    dc = top.constraint_gradient(x0)
-    lo = torch.clamp(x0 - m, min=0.0)
-    hi = torch.clamp(x0 + m, max=1.0)
+    with timers.span("oc.adjoint"):
+        dJ = top.objective_gradient(x0, u)
+    with timers.span("oc.constraint_grad"):
+        dc = top.constraint_gradient(x0)
+    with timers.span("oc.bisection"):
+        lo = torch.clamp(x0 - m, min=0.0)
+        hi = torch.clamp(x0 + m, max=1.0)
 
-    def stepped_vars(lam):
-        ratio = dJ / (dc * float(lam))
-        step = x0 * torch.sqrt(torch.clamp(ratio, min=0.0))
-        return torch.minimum(torch.maximum(step, lo), hi)
+        def stepped_vars(lam):
+            ratio = dJ / (dc * float(lam))
+            step = x0 * torch.sqrt(torch.clamp(ratio, min=0.0))
+            return torch.minimum(torch.maximum(step, lo), hi)
 
-    def ceval(lam) -> float:
-        with torch.no_grad():
-            v = vol.total_volume_constraint(
-                top.physical_density(stepped_vars(lam)), top.max_volume)
-        return st(v.item())
+        def ceval(lam) -> float:
+            timers.count("oc.bisection_evals")
+            with torch.no_grad():
+                v = vol.total_volume_constraint(
+                    top.physical_density(stepped_vars(lam)), top.max_volume)
+            return st(timers.read(v))
 
-    lam_min, lam_max = st(state.lambda_min), st(state.lambda_max)
-    while ceval(lam_min) > 0:            # expand the bracket downward
-        lam_min, lam_max = lam_min * st(0.5), lam_min
-    while ceval(lam_max) < 0:            # expand the bracket upward
-        lam_min, lam_max = lam_max, lam_max * st(2.0)
+        lam_min, lam_max = st(state.lambda_min), st(state.lambda_max)
+        while ceval(lam_min) > 0:            # expand the bracket downward
+            lam_min, lam_max = lam_min * st(0.5), lam_min
+        while ceval(lam_max) < 0:            # expand the bracket upward
+            lam_min, lam_max = lam_max, lam_max * st(2.0)
 
-    lam_mid = st(0.5) * (lam_min + lam_max)
-    v = ceval(lam_mid)
-    it = 0
-    while abs(v) > st(ctol) and it < 100:
-        if v < 0:
-            lam_min = lam_mid
-        if v > 0:
-            lam_max = lam_mid
         lam_mid = st(0.5) * (lam_min + lam_max)
         v = ceval(lam_mid)
-        it += 1
+        it = 0
+        while abs(v) > st(ctol) and it < 100:
+            if v < 0:
+                lam_min = lam_mid
+            if v > 0:
+                lam_max = lam_mid
+            lam_mid = st(0.5) * (lam_min + lam_max)
+            v = ceval(lam_mid)
+            it += 1
 
-    with torch.no_grad():
-        x_new = stepped_vars(lam_mid)
+        with torch.no_grad():
+            x_new = stepped_vars(lam_mid)
     new_state = OCState(x=x_new, u=u, lambda_min=float(lam_min),
                         lambda_max=float(lam_max))
     metrics = {
-        "compliance": float(c),
+        "compliance": timers.read(c),
         "constraint": float(v),
         "lambda": float(lam_mid),
         "cg_iters": int(iters),

@@ -37,6 +37,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ndr_tpu_torch.utils import timers
+
 
 @dataclasses.dataclass(frozen=True)
 class MLPConfig:
@@ -159,7 +161,10 @@ def apply_chunked(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
 
 def mlp_apply_chunked(model: FourierFeatureMLP, x: torch.Tensor,
                       max_points: int = 1 << 17) -> torch.Tensor:
-    """:func:`mlp_apply` through :func:`apply_chunked`."""
+    """:func:`mlp_apply` through :func:`apply_chunked`; counted as one
+    full-field forward (``mlp_forwards``; backward's recompute of the chunks
+    is not one)."""
+    timers.count("mlp_forwards")
     return apply_chunked(lambda c: mlp_apply(model, c), x, model.cfg.out_features,
                          max_points)
 

@@ -49,8 +49,9 @@ class ClassicResult:
     step_seconds: List[float]      # wall time of each OC step (no callbacks;
                                    # chunked steps: the chunk's wall / chunk;
                                    # LBFGS: of each inner iteration)
-    # multigrid.stats over the OC steps: hierarchy builds, CUDA-graph
-    # captures, replays and capture seconds
+    # multigrid.stats (the port's counters and span times, timers.counters)
+    # over the OC steps: hierarchy builds, CUDA-graph captures, replays and
+    # capture seconds, CG iterations, host reads, ...
     solver_stats: dict = dataclasses.field(default_factory=dict)
     # LBFGS: objective + gradient evaluations (one solve each)
     evaluations: int = 0
@@ -241,7 +242,7 @@ def ground_truth_topopt(
     t_iter = t_start
     evaluations = 0
     if optimizer == "LBFGS":
-        with timers.section("LBFGS optimization"):
+        with timers.span("LBFGS optimization"):
             res = lbfgs.lbfgs_topopt(
                 top, x0, max_iter=max_iter, log=log, log_every=log_every,
                 callback=lambda i, x: boundary(i, dataclasses.replace(state, x=x)))
@@ -249,7 +250,7 @@ def ground_truth_topopt(
         evaluations = res.evaluations
         state = dataclasses.replace(state, x=res.x)
     else:
-        with timers.section("OC optimization"):
+        with timers.span("OC optimization"):
             idx = 0
             while chunk and idx + chunk <= max_iter:
                 t_chunk = time.perf_counter()
@@ -263,21 +264,23 @@ def ground_truth_topopt(
                     chunk_metrics.append(metrics)
                 now = time.perf_counter()  # oc_step ends on host reads: synced
                 dt = (now - t_chunk) / chunk
-                for j, metrics in enumerate(chunk_metrics):
-                    step_seconds.append(dt)
-                    log_step(idx + j, dt, metrics)
-                idx += chunk
-                t_iter = time.perf_counter()
-                boundary(idx - 1, state)
+                with timers.span("driver.boundary"):
+                    for j, metrics in enumerate(chunk_metrics):
+                        step_seconds.append(dt)
+                        log_step(idx + j, dt, metrics)
+                    idx += chunk
+                    t_iter = time.perf_counter()
+                    boundary(idx - 1, state)
             for idx in range(idx, max_iter):
                 t_step = time.perf_counter()
                 state, metrics = counted(host_step, state)
                 now = time.perf_counter()  # oc_step ends on host reads: synced
-                step_seconds.append(now - t_step)
-                log_step(idx, now - t_iter, metrics)
-                t_iter = time.perf_counter()
-                boundary(idx, state)
-    solver_stats = {k: mg.stats[k] - v for k, v in stats0.items()}
+                with timers.span("driver.boundary"):
+                    step_seconds.append(now - t_step)
+                    log_step(idx, now - t_iter, metrics)
+                    t_iter = time.perf_counter()
+                    boundary(idx, state)
+    solver_stats = timers.delta(stats0)
     chunk_precond = lag_state["precond"] = None  # free the lagged hierarchies
 
     # Final evaluation + binary compliance with the reference's semantics:

@@ -35,6 +35,7 @@ from ndr_tpu_torch.io.problem import ProblemConfig
 from ndr_tpu_torch.models import mlp
 from ndr_tpu_torch.ops import filters as flt
 from ndr_tpu_torch.ops import volume as vol
+from ndr_tpu_torch.utils import timers
 
 
 def get_mgrid(sidelen: Sequence[int], domain=None, dtype=torch.float32,
@@ -99,6 +100,7 @@ def make_density_fn(ncfg: NeuralTOConfig,
     parameters at every call (the reference's per-step schedule)."""
     hard = vol.is_hard_mode(ncfg.volume_constraint_satisfier)
 
+    @timers.span("neural.density")
     def density_fn(model, coords, max_volume):
         out = mlp.mlp_apply_chunked(model, coords)[..., 0]
         if hard:
@@ -179,6 +181,7 @@ def build_trainer(
     solve = mg.make_mg_solver(prob, settings)
     max_volume = cfg.max_volume
 
+    @timers.span("neural.step")
     def train_step(state: NeuralTOState, precond=None):
         rho = density_fn(state.model, coords, max_volume)
         with torch.no_grad():
@@ -193,9 +196,11 @@ def build_trainer(
                 rho, max_volume, compliance_loss=c,
                 mode=ncfg.volume_constraint_satisfier,
                 scaler_mode="clip", constant=ncfg.scaler_constant)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
+        with timers.span("neural.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with timers.span("neural.optimizer"):
+            state.optimizer.step()
         state.u = u
         state.step += 1
         return state, {"loss": loss.detach(), "compliance": c.detach(),
@@ -207,6 +212,7 @@ def build_trainer(
                      device=device)
     state0 = NeuralTOState(model=model, optimizer=optimizer, u=u0, step=step)
 
+    @timers.span("neural.precond_build")
     def build_precond_from_state(state: NeuralTOState, into=None, use_graph=False):
         """The lagged preconditioner for the current network's density."""
         with torch.no_grad():
@@ -238,7 +244,8 @@ def train(
     synchronized at its end (chunked steps: the chunk's wall / chunk);
     ``aux["cg_iters"]`` each step's CG iterations and
     ``aux["cg_passes_at_cap"]`` its passes that stopped at the CG cap;
-    ``aux["solver_stats"]`` the ``multigrid.stats`` of the loop."""
+    ``aux["solver_stats"]`` the ``multigrid.stats`` of the loop (the port's
+    counters and span times)."""
     state, train_step, aux = build_trainer(cfg, ncfg, dims=dims, filters=filters,
                                            dtype=dtype, device=device, state=state)
     device = state.u.device
@@ -253,6 +260,11 @@ def train(
         n0 = mg.stats["cg_passes_at_cap"]
         state, metrics = train_step(state, precond=precond)
         return state, dict(metrics, cg_passes_at_cap=mg.stats["cg_passes_at_cap"] - n0)
+
+    def read_back(metrics):
+        """A step's metrics as host numbers (its loss and compliance read)."""
+        return {k: timers.read(v) if isinstance(v, torch.Tensor) else v
+                for k, v in metrics.items()}
 
     def log_step(i, step_no, metrics):
         c = float(metrics["compliance"])
@@ -285,18 +297,19 @@ def train(
                                        use_graph=device.type == "cuda")
                 state, metrics = counted_step(state, precond)
                 chunk_metrics.append(metrics)
-            # one read-back per chunk
-            chunk_metrics = [{k: float(v) for k, v in m.items()} for m in chunk_metrics]
-            _sync(device)
-            dt = (time.perf_counter() - t_chunk) / chunk
-            for j, metrics in enumerate(chunk_metrics):
-                step_seconds.append(dt)
-                log_step(i + j, state.step - chunk + 1 + j, metrics)
-            i += chunk
-            if i == chunk:
-                t_warm, n_warm = time.perf_counter(), chunk
-            if checkpoint_cb is not None:
-                checkpoint_cb(i - 1, state)
+            with timers.span("driver.boundary"):
+                # one read-back per chunk
+                chunk_metrics = [read_back(m) for m in chunk_metrics]
+                _sync(device)
+                dt = (time.perf_counter() - t_chunk) / chunk
+                for j, metrics in enumerate(chunk_metrics):
+                    step_seconds.append(dt)
+                    log_step(i + j, state.step - chunk + 1 + j, metrics)
+                i += chunk
+                if i == chunk:
+                    t_warm, n_warm = time.perf_counter(), chunk
+                if checkpoint_cb is not None:
+                    checkpoint_cb(i - 1, state)
 
     precond = None
     for i in range(i, max_iter):
@@ -304,15 +317,16 @@ def train(
         if lag and i % lag == 0:
             precond = build_pc(state)
         state, metrics = counted_step(state, precond)
-        if filters is not None:
-            filters.update(i)  # per-step schedule update
-        _sync(device)
-        step_seconds.append(time.perf_counter() - t_step)
-        log_step(i, state.step, metrics)
-        if i == 0:
-            t_warm, n_warm = time.perf_counter(), 1
-        if checkpoint_cb is not None:
-            checkpoint_cb(i, state)
+        with timers.span("driver.boundary"):
+            if filters is not None:
+                filters.update(i)  # per-step schedule update
+            _sync(device)
+            step_seconds.append(time.perf_counter() - t_step)
+            log_step(i, state.step, read_back(metrics))
+            if i == 0:
+                t_warm, n_warm = time.perf_counter(), 1
+            if checkpoint_cb is not None:
+                checkpoint_cb(i, state)
     precond = None  # free the lagged hierarchy
     t1 = time.perf_counter()
     log(f"Resolution runtime: {t1 - t0:.2f}s "
@@ -321,7 +335,7 @@ def train(
     aux["step_seconds"] = step_seconds
     aux["cg_iters"] = cg_iters
     aux["cg_passes_at_cap"] = cg_passes_at_cap
-    aux["solver_stats"] = {k: mg.stats[k] - v for k, v in stats0.items()}
+    aux["solver_stats"] = timers.delta(stats0)
     return state, history, aux
 
 

@@ -8,52 +8,44 @@
 
 It runs ``2 + steps + 1`` training steps on CUDA, as
 ``utils/profile_oc.py`` does for the OC step: two warm-up steps; ``steps``
-steps with the card synchronized around each section of :data:`SECTIONS`
-(the chunked MLP forward, the volume satisfier with its ``find_root``
-bisection, the whole MGPCG solve, the backward pass — which recomputes
-the MLP chunks — and the Adam step); then one step traced with
-``torch.profiler`` without those syncs (wall, device busy time, idle
-share, device ops, the ops that took the most time).
+timed steps, with per step the port's spans (``neural.step`` and in it
+``neural.density``, the chunked MLP forward with the volume satisfier;
+``solve``; ``neural.backward``, which recomputes the MLP chunks;
+``neural.optimizer``, the Adam step; host ms, self ms and calls) and
+counters; then one step traced with ``torch.profiler`` (wall, device busy
+time, idle share, device ops, the ops that took the most time, each
+span's device ms).
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
-from collections import defaultdict
 
 import torch
 
-from ndr_tpu_torch.fem import multigrid as mg
 from ndr_tpu_torch.io.problem import load_problem
-from ndr_tpu_torch.models import mlp
-from ndr_tpu_torch.ops import volume as vol
 from ndr_tpu_torch.training import neural
-from ndr_tpu_torch.utils.profile_oc import WARMUP, report, synced_sections
+from ndr_tpu_torch.utils import timers
+from ndr_tpu_torch.utils.profile_oc import WARMUP, report
 from ndr_tpu_torch.utils.torch_setup import resolve_device, setup
-
-#: (label, owner, attribute) of each synchronized section.
-SECTIONS = (
-    ("MLP forward (chunked)", mlp, "mlp_apply_chunked"),
-    ("volume satisfier (find_root)", vol, "satisfy_volume_constraint"),
-    ("solve total", mg, "mgpcg_solve"),
-    ("backward (MLP recompute + grads)", torch.Tensor, "backward"),
-    ("Adam step", torch.optim.Adam, "step"),
-)
 
 
 def profile(cfg, ncfg: neural.NeuralTOConfig, dims, steps: int, device):
     tag = f"[{ncfg.fine_kernel}, kernels {ncfg.use_kernels}]"
-    on, seconds, calls = [False], defaultdict(float), defaultdict(int)
+    timed = {}
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA])
     traced = WARMUP + steps
 
     def callback(idx, state):
-        # runs after step idx: switch the timing mode of step idx + 1
-        on[0] = WARMUP - 1 <= idx < traced - 1
-        if idx == traced - 1:
+        # runs after step idx: snapshot the registry around the timed
+        # steps, trace the last step
+        if idx == WARMUP - 1:
+            timed.update(timers.counters)
+        elif idx == traced - 1:
+            timed.update(timers.delta(timed))
             torch.cuda.synchronize()
             prof.start()
         elif idx == traced:
@@ -61,14 +53,12 @@ def profile(cfg, ncfg: neural.NeuralTOConfig, dims, steps: int, device):
             prof.stop()
 
     torch.cuda.reset_peak_memory_stats()
-    with synced_sections(on, seconds, calls, SECTIONS):
-        _, _, aux = neural.train(cfg, ncfg, dims=dims, max_iter=traced + 1,
-                                 checkpoint_cb=callback, device=device,
-                                 log=lambda s: None)
+    _, _, aux = neural.train(cfg, ncfg, dims=dims, max_iter=traced + 1,
+                             checkpoint_cb=callback, device=device, log=lambda s: None)
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_seconds = aux["step_seconds"]
-    report(tag, "s/step", SECTIONS, seconds, calls, steps,
-           step_seconds[WARMUP:traced], step_seconds[traced], prof)
+    report(tag, "s/step", steps, step_seconds[WARMUP:traced], timed,
+           step_seconds[traced], prof)
     print(f"{tag} peak memory {peak:.2f} GiB")
 
 

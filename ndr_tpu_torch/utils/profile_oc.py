@@ -10,26 +10,26 @@
 For each kernels setting it runs ``2 + steps + 1`` OC steps on CUDA:
 
 1. two warm-up steps, untimed;
-2. ``steps`` steps with the card synchronized around each named section
-   of :data:`SECTIONS` (hierarchy build, coarsest dense K + factor, MG
-   preconditioner, whole solve, adjoint gradient, constraint gradient).
-   The syncs make each section an upper bound, and the first three are
-   parts of "solve total";
-3. one step traced with ``torch.profiler``, without those syncs: its wall
-   time, the device's busy time (the summed durations of its kernels,
-   memcpys and memsets, which run on one stream and do not overlap), the
-   idle share 1 - busy / wall, the number of device ops, and the device
-   ops that took the most time.
+2. ``steps`` timed steps: their median wall time, and per step the port's
+   spans (``utils/timers``: host ms, self ms and calls of each, read from
+   the registry; a step ends on host reads, so its spans hold the waits
+   for the card) and counters (CG iterations, host reads, bisection
+   evaluations, ...);
+3. one step traced with ``torch.profiler``: its wall time, the device's
+   busy time (the summed durations of its kernels, memcpys and memsets,
+   which run on one stream and do not overlap), the idle share 1 - busy /
+   wall, the number of device ops, the device ops that took the most time,
+   and each span's device ms (the kernels launched inside it, its child
+   spans' included).
 
 ``--precond-lag`` and ``--scan`` run the trainer's lagged preconditioner
 and chunked loop, ``--settings`` a JSON object of ``MGSolverSettings``
 fields to replace. With ``--scan`` the callbacks come at chunk boundaries
 (on CUDA the preconditioner replays from a CUDA graph, whose capture falls
 in the first chunk), so the run is three chunks instead: one of warm-up,
-one with the synced sections (the replays timed as "MG preconditioner
-(graph replay)"), and one traced, whose wall, busy time and device ops are
-reported per step. Each run also prints its hierarchy builds and the
-graph's captures, replays and capture seconds. ``--warm N`` starts each
+one timed, and one traced, whose wall, busy time, device ops and span
+device times are reported per step. Each run also prints its hierarchy
+builds and the graph's captures, replays and capture seconds. ``--warm N`` starts each
 run from the design of N fresh OC steps (untimed), as the JAX package's
 ``scripts/profile_oc.py --warm`` does: from the uniform start a lagged
 hierarchy stalls CG after the first large OC moves.
@@ -37,13 +37,13 @@ hierarchy stalls CG after the first large OC moves.
 ``--x64`` runs the problem in float64 (the float64 kernels with kernels
 on). ``--optim LBFGS`` profiles the L-BFGS optimizer instead, with one
 inner iteration in the place of an OC step (the optimizer calls the
-callback after each): two iterations of warm-up, ``steps`` synced, one
+callback after each): two iterations of warm-up, ``steps`` timed, one
 traced; an iteration's line search runs one or more objective
 evaluations (solves), reported per iteration.
 
 With ``--smoother gs`` the GS sweeps are also tallied per level: in the
-synced steps each sweep is timed between two syncs (sweeps per step, ms
-per sweep, their share of "solve total"), and after the run one sweep of
+timed steps each sweep is timed between two syncs (sweeps per step, ms
+per sweep, their share of the ``solve`` span), and after the run one sweep of
 each level, on the operands of its last call, is traced on its own: its
 device ops (launches per sweep), its device busy time and the idle share
 1 - busy / (synced ms per sweep), and the port's kernel launches in it.
@@ -65,8 +65,8 @@ import torch
 from ndr_tpu_torch.io.problem import load_problem
 from ndr_tpu_torch.fem import kernels
 from ndr_tpu_torch.fem import multigrid as mg
-from ndr_tpu_torch.fem import topopt
 from ndr_tpu_torch.training.classic import ground_truth_topopt
+from ndr_tpu_torch.utils import timers
 from ndr_tpu_torch.utils.torch_setup import resolve_device, setup
 
 WARMUP = 2
@@ -77,49 +77,6 @@ PORT_KERNELS = ("apply_k_fine_stream_kernel", "cached_apply_kernel",
                 "cached_stencil_kernel", "apply_k_fine_kernel",
                 "elem_blocks_kernel", "stitch_faces",
                 "apply_k_elem_partials", "sum_elem_partials")
-
-#: (label, owner, attribute) of each synchronized section.
-SECTIONS = (
-    ("hierarchy: Galerkin Ke + diag blocks", mg, "build_level_states"),
-    ("coarsest: dense K + factor", mg, "factor_coarsest"),
-    ("MG preconditioner", mg, "mg_preconditioner"),
-    ("MG preconditioner (graph replay)", mg.PrecondGraph, "__call__"),
-    ("solve total", mg, "mgpcg_solve"),
-    ("adjoint gradient + filter backprop",
-     topopt.TopologyOptimizationProblem, "objective_gradient"),
-    ("constraint gradient", topopt.TopologyOptimizationProblem,
-     "constraint_gradient"),
-)
-
-
-@contextlib.contextmanager
-def synced_sections(on: list, seconds: dict, calls: dict, sections=SECTIONS):
-    """Wrap each function of ``sections`` (label, owner, attribute) so
-    that, while ``on[0]`` is true, the card is synchronized around the
-    call and its wall time is added to ``seconds[label]``."""
-    saved = []
-    for label, owner, attr in sections:
-        fn = getattr(owner, attr)
-        saved.append((owner, attr, fn))
-
-        def timed(*args, _fn=fn, _label=label, **kwargs):
-            if not on[0] or torch.cuda.is_current_stream_capturing():
-                return _fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = _fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            seconds[_label] += time.perf_counter() - t0
-            calls[_label] += 1
-            return out
-
-        setattr(owner, attr, timed)
-    try:
-        yield
-    finally:
-        for owner, attr, fn in saved:
-            setattr(owner, attr, fn)
-
 
 @contextlib.contextmanager
 def gs_sweep_tally(on: list, seconds: dict, calls: dict, last: dict):
@@ -150,7 +107,7 @@ def gs_sweep_tally(on: list, seconds: dict, calls: dict, last: dict):
 
 def report_gs_sweeps(tag: str, seconds, calls, last, steps: int, solve_s: float):
     """Per level: sweeps per step, synced ms per sweep, share of the
-    solve (``solve_s``: the synced solves' seconds over the same ``steps``)
+    solve (``solve_s``: the ``solve`` span's seconds over the same ``steps``)
     and one traced sweep's device ops, busy time and idle share."""
     for key in sorted(last, key=lambda k: -math.prod(k)):
         lv, u, b, forward = last[key]
@@ -174,18 +131,26 @@ def report_gs_sweeps(tag: str, seconds, calls, last, steps: int, solve_s: float)
               f"{1 - 1e3 * busy / ms:.3f}; port kernels {used}")
 
 
-def report(tag: str, unit: str, sections, seconds, calls, steps: int, synced,
-           wall, prof, traced_steps: int = 1):
-    """Print the synced steps' median time (in ``unit``), the sections'
-    ms/step and the traced window's (``traced_steps`` steps) device busy
-    time, idle share and top device ops."""
-    print(f"{tag} {unit} with synced sections (median of {steps} steps) "
-          f"{statistics.median(synced):.4f}")
-    for label, *_ in sections:
-        print(f"{tag}   {label:40s} {1e3 * seconds[label] / steps:9.2f} ms/step"
-              f"  ({calls[label] / steps:.1f} calls/step)")
-    busy, n_ops, top, port = device_summary(prof)
+def report(tag: str, unit: str, steps: int, timed, timed_stats, wall, prof,
+           traced_steps: int = 1):
+    """Print the timed steps' median time (in ``unit``, of ``timed``), per
+    step the spans and counters of ``timed_stats`` (their registry delta
+    over the ``steps`` steps), and the traced window's (``traced_steps``
+    steps) device busy time, idle share, top device ops and span device
+    times."""
+    print(f"{tag} {unit} (median of {steps} timed steps) "
+          f"{statistics.median(timed):.4f}")
     k = traced_steps
+    spans = timers.to_dict(timed_stats)
+    device = span_device_seconds(prof, spans)
+    for name, sp in spans.items():
+        print(f"{tag}   span {name:24s} host {1e3 * sp['seconds'] / steps:9.2f} ms/step "
+              f"(self {1e3 * sp['self_seconds'] / steps:8.2f}), "
+              f"{sp['count'] / steps:5.1f} calls/step; device "
+              f"{1e3 * device[name] / k:8.2f} ms/step (traced)")
+    print(f"{tag}   counters per step: " + ", ".join(
+        f"{key} {v / steps:.2f}" for key, v in timers.counts(timed_stats).items() if v))
+    busy, n_ops, top, port = device_summary(prof)
     what = "step" if k == 1 else f"chunk ({k} steps, per step)"
     if n_ops == 0:
         print(f"{tag} traced {what} wall {1e3 * wall / k:.1f} ms; device time not "
@@ -198,6 +163,25 @@ def report(tag: str, unit: str, sections, seconds, calls, steps: int, synced,
         print(f"{tag}   {name[:72]:72s} {1e3 * s / k:8.2f} ms  x{count / k:.0f}")
     for name, s, count in port:
         print(f"{tag} port kernel {name[:60]:60s} {1e3 * s / k:8.2f} ms  x{count / k:.0f}")
+
+
+def span_device_seconds(prof, names) -> dict:
+    """Device seconds of the kernels (memcpys, memsets) launched inside each
+    span of ``names`` in a ``torch.profiler`` trace: under the span's own
+    host event or an op nested in it, its child spans' included."""
+    names = set(names)
+    out = defaultdict(float)
+    for e in prof.events():
+        if not e.kernels:
+            continue
+        chain, p = {e.name}, e.cpu_parent
+        while p is not None:
+            chain.add(p.name)
+            p = p.cpu_parent
+        s = sum(k.duration for k in e.kernels) * 1e-6
+        for name in chain & names:
+            out[name] += s
+    return out
 
 
 def device_summary(prof):
@@ -231,25 +215,28 @@ def profile(cfg, dims, mgl: int, steps: int, kernels_mode: str, device,
             cfg, dims=dims, max_iter=warm_steps, multigrid_levels=mgl,
             smoother=smoother, use_kernels=use_kernels, device=device,
             log=lambda s: None, solver_overrides=overrides, dtype=dtype).densities
-    on, seconds, calls = [False], defaultdict(float), defaultdict(int)
+    on, timed = [False], {}
     gs_s, gs_n, gs_last = defaultdict(float), defaultdict(int), {}
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA])
-    if scan > 1:  # three chunks: warm-up (the capture), synced, traced
+    if scan > 1:  # three chunks: warm-up (the capture), timed, traced
         chunk = max(1, scan // lag) * lag if lag > 1 else scan
-        warm, n_synced, n_traced = chunk, chunk, chunk
+        warm, n_timed, n_traced = chunk, chunk, chunk
     else:
-        warm, n_synced, n_traced = WARMUP, steps, 1
-    traced = warm + n_synced   # the first traced step
+        warm, n_timed, n_traced = WARMUP, steps, 1
+    traced = warm + n_timed   # the first traced step
     total = traced + n_traced
     lbfgs_run = optimizer == "LBFGS"
 
     def callback(idx, state):
         # runs after step idx (chunked: after the chunk that ends at idx):
-        # switch the timing mode of what follows
+        # snapshot the registry around the timed steps, trace the rest
         on[0] = warm - 1 <= idx < traced - 1
-        if idx == traced - 1:
+        if idx == warm - 1:
+            timed.update(timers.counters)
+        elif idx == traced - 1:
+            timed.update(timers.delta(timed))
             torch.cuda.synchronize()
             prof.start()
         elif idx == total - 1:
@@ -258,36 +245,33 @@ def profile(cfg, dims, mgl: int, steps: int, kernels_mode: str, device,
 
     torch.cuda.reset_peak_memory_stats()
     tally = gs_sweep_tally(on, gs_s, gs_n, gs_last) if scan <= 1 else contextlib.nullcontext()
-    with synced_sections(on, seconds, calls), tally:
-        t_run = time.perf_counter()
+    with tally:
         result = ground_truth_topopt(
             cfg, dims=dims, max_iter=total, multigrid_levels=mgl,
             smoother=smoother, use_kernels=use_kernels, init=init,
             device=device, callback=callback, log=lambda s: None,
             precond_lag=lag, scan_chunk=scan, solver_overrides=overrides,
             dtype=dtype, optimizer=optimizer)
-        t_run = time.perf_counter() - t_run
     peak = torch.cuda.max_memory_allocated() / 2**30
     if len(result.step_seconds) < total:
         raise RuntimeError(f"{optimizer} stopped after {len(result.step_seconds)} "
                            f"iterations, before the {total} profiled")
 
     traced_wall = sum(result.step_seconds[traced:total])
-    report(tag, "s/OC-iter" if not lbfgs_run else "s per L-BFGS iteration", SECTIONS,
-           seconds, calls, n_synced, result.step_seconds[warm:traced], traced_wall,
-           prof, n_traced)
+    report(tag, "s/OC-iter" if not lbfgs_run else "s per L-BFGS iteration", n_timed,
+           result.step_seconds[warm:traced], timed, traced_wall, prof, n_traced)
     if lbfgs_run:
         n_it = len(result.step_seconds)
         print(f"{tag} L-BFGS: {n_it} inner iterations, {result.evaluations} objective "
               f"evaluations ({result.evaluations / n_it:.2f} per iteration), run wall "
-              f"{t_run:.3f} s")
+              f"{result.solver_stats['LBFGS optimization.s']:.3f} s")
     st = result.solver_stats
     print(f"{tag} peak memory {peak:.2f} GiB; {total} "
           f"{'iterations' if lbfgs_run else 'steps'}: hierarchy builds "
           f"{st['hierarchy_builds']}, graph captures {st['graph_captures']} "
           f"({st['graph_capture_seconds']:.3f} s), replays {st['graph_replays']}")
     if gs_last:
-        report_gs_sweeps(tag, gs_s, gs_n, gs_last, n_synced, seconds["solve total"])
+        report_gs_sweeps(tag, gs_s, gs_n, gs_last, n_timed, timed["solve.s"])
 
 
 def main(argv=None):

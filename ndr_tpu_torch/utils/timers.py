@@ -1,104 +1,140 @@
-"""Hierarchical named-timer facade (counterpart of ``ndr_tpu/utils/timers.py``).
+"""Spans and counters of ndr_tpu_torch (counterpart of ``ndr_tpu/utils/timers.py``).
 
-Wall-clock timers for host-side phases. CUDA work is asynchronous, so a
-section synchronizes the card before it stops its clock when CUDA is in
-use; the numbers then include the device work the section enqueued.
-:func:`trace` records an on-device timeline with ``torch.profiler``.
+One registry, :data:`counters`, holds every count the port keeps and the
+host-clock times of its spans; ``multigrid.stats`` is this same dict.
+
+- :func:`span` times a named region on the host clock into the registry:
+  ``<name>.s`` (seconds), ``<name>.self_s`` (seconds less those of the spans
+  opened inside it) and ``<name>.n`` (calls). While a ``torch.profiler``
+  runs, the span is also a host event of the trace (a CPU-typed record
+  function, not a user annotation), the parent of the ops, ctypes kernel
+  launches and CUDA-graph replays made inside it. It never synchronizes
+  the card: on CUDA a span's host time is the time to enqueue its work,
+  plus any wait at a blocking read inside it.
+- :func:`count` adds to a counter; :func:`read` is the one way the step's
+  path reads a device scalar to the host, counted under ``host_reads``.
+- :func:`to_dict` and :func:`report` render the spans; :func:`trace`
+  writes a ``torch.profiler`` Chrome trace, in which the spans show.
+
+Spans nest by the order they open and close on one thread (the port's
+loops run on one).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
-from collections import defaultdict
 from typing import Dict
 
 import torch
+import torch.autograd.profiler as _profiler
+from torch._C._profiler import _RecordFunctionFast
+
+#: The registry: counters and span times since the last :func:`reset`.
+counters: Dict[str, float] = {}
+
+# the open spans, innermost last: [child seconds in ns, record function, start ns]
+_open: list = []
+# each span name's three keys, made (and put in the registry) once
+_keys: Dict[str, tuple] = {}
 
 
-class _Section:
-    __slots__ = ("total", "count", "children")
+class span:
+    """``with span("name"):`` or ``@span("name")``: time a region (see the
+    module docstring)."""
 
-    def __init__(self):
-        self.total = 0.0
-        self.count = 0
-        self.children = defaultdict(_Section)
+    __slots__ = ("name", "_keys")
 
+    def __init__(self, name: str):
+        self.name = name
+        keys = _keys.get(name)
+        if keys is None:
+            keys = _keys[name] = (name + ".s", name + ".self_s", name + ".n")
+            for k, zero in zip(keys, (0.0, 0.0, 0)):
+                counters.setdefault(k, zero)
+        self._keys = keys
 
-class Benchmark:
-    """Hierarchical accumulating timers with reset/report/to_dict."""
+    def __enter__(self):
+        rf = None
+        if _profiler._is_profiler_enabled:
+            rf = _RecordFunctionFast(self.name)
+            rf.__enter__()
+        _open.append([0, rf, time.perf_counter_ns()])
+        return self
 
-    def __init__(self, sync: bool = True):
-        self._root = _Section()
-        self._stack = []  # (name, start_time, section)
-        self.sync = sync
+    def __exit__(self, *exc):
+        ns = time.perf_counter_ns()
+        child, rf, t0 = _open.pop()
+        ns -= t0
+        if _open:
+            _open[-1][0] += ns
+        s, self_s, n = self._keys
+        c = counters
+        c[s] += ns * 1e-9
+        c[self_s] += (ns - child) * 1e-9
+        c[n] += 1
+        if rf is not None:
+            rf.__exit__(*exc)
+        return False
 
-    def reset(self):
-        self._root = _Section()
-        self._stack = []
-
-    def start_timer_section(self, name: str):
-        parent = self._stack[-1][2] if self._stack else self._root
-        sec = parent.children[name]
-        self._stack.append((name, time.perf_counter(), sec))
-
-    def stop_timer_section(self, name: str):
-        if self.sync and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        top_name, start, sec = self._stack.pop()
-        if top_name != name:
-            raise RuntimeError(f"Timer mismatch: stopping {name!r}, open {top_name!r}")
-        sec.total += time.perf_counter() - start
-        sec.count += 1
-
-    @contextlib.contextmanager
-    def section(self, name: str):
-        self.start_timer_section(name)
-        try:
-            yield
-        finally:
-            self.stop_timer_section(name)
-
-    def to_dict(self) -> Dict:
-        def walk(sec):
-            return {
-                name: {
-                    "seconds": child.total,
-                    "count": child.count,
-                    "children": walk(child),
-                }
-                for name, child in sec.children.items()
-            }
-
-        return walk(self._root)
-
-    def report(self, file=None) -> str:
-        lines = []
-
-        def walk(sec, depth):
-            for name, child in sec.children.items():
-                lines.append(
-                    f"{'  ' * depth}{name}: {child.total:.4f}s ({child.count} calls)"
-                )
-                walk(child, depth + 1)
-
-        walk(self._root, 0)
-        out = "\n".join(lines)
-        if file is not None:
-            print(out, file=file)
-        return out
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with self:
+                return fn(*args, **kwargs)
+        return spanned
 
 
-# module-level default instance (parity with ndr_tpu.utils.timers)
-_default = Benchmark()
+def count(key: str, n=1) -> None:
+    """Add ``n`` to the counter ``key``."""
+    counters[key] = counters.get(key, 0) + n
 
-reset = _default.reset
-start_timer_section = _default.start_timer_section
-stop_timer_section = _default.stop_timer_section
-section = _default.section
-to_dict = _default.to_dict
-report = _default.report
+
+def read(t: torch.Tensor):
+    """``t.item()``, counted as one blocking device-to-host read
+    (``host_reads``)."""
+    counters["host_reads"] = counters.get("host_reads", 0) + 1
+    return t.item()
+
+
+def delta(since: Dict[str, float]) -> Dict[str, float]:
+    """Every counter's change since the snapshot ``since`` (a ``dict`` of
+    :data:`counters`), keys first made after it included."""
+    return {k: v - since.get(k, 0) for k, v in counters.items()}
+
+
+def reset() -> None:
+    """Zero every counter and span time, in place (the dict stays the one
+    that ``multigrid.stats`` names)."""
+    for k, v in counters.items():
+        counters[k] = type(v)()
+
+
+def to_dict(stats: Dict[str, float] = None) -> Dict[str, Dict[str, float]]:
+    """``{name: {"seconds", "self_seconds", "count"}}`` of the spans in
+    ``stats`` (default: the registry), longest first."""
+    stats = counters if stats is None else stats
+    out = {n: {"seconds": stats[s], "self_seconds": stats[self_s], "count": stats[c]}
+           for n, (s, self_s, c) in _keys.items() if stats.get(c)}
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["seconds"]))
+
+
+def counts(stats: Dict[str, float] = None) -> Dict[str, float]:
+    """The entries of ``stats`` (default: the registry) that are counters,
+    not span times."""
+    stats = counters if stats is None else stats
+    return {k: v for k, v in stats.items() if k.rpartition(".")[0] not in _keys}
+
+
+def report(file=None) -> str:
+    """One line per span: host seconds, self seconds and calls."""
+    out = "\n".join(f"{name}: {s['seconds']:.4f}s (self {s['self_seconds']:.4f}s, "
+                    f"{s['count']} calls)" for name, s in to_dict().items())
+    if file is not None:
+        print(out, file=file)
+    return out
 
 
 @contextlib.contextmanager

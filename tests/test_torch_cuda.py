@@ -455,9 +455,11 @@ def test_profile_oc_small(device, capsys):
     profile_oc.main(["--grid", "[16,8,8]", "--mgl", "2", "--steps", "1"])
     out = capsys.readouterr().out
     for tag in ("[on]", "[off]"):
-        assert f"{tag} s/OC-iter with synced sections" in out
+        assert f"{tag} s/OC-iter (median of 1 timed steps)" in out
         assert f"{tag} traced step wall" in out
-        assert f"{tag}   solve total" in out
+        for span in ("oc.step", "solve", "mg.cg", "oc.bisection"):
+            assert f"{tag}   span {span} " in out
+        assert f"{tag}   counters per step: " in out and "host_reads" in out
     profile_oc.main(["--grid", "[16,8,8]", "--mgl", "2", "--steps", "1",
                      "--kernels", "on", "--smoother", "gs"])
     out = capsys.readouterr().out
@@ -470,11 +472,11 @@ def test_profile_oc_small(device, capsys):
     assert "graph captures 1" in out
     profile_oc.main(["--grid", "[16,8,8]", "--mgl", "2", "--steps", "1",
                      "--kernels", "on", "--x64"])
-    assert "[on] s/OC-iter with synced sections" in capsys.readouterr().out
+    assert "[on] s/OC-iter (median of 1 timed steps)" in capsys.readouterr().out
     profile_oc.main(["--grid", "[16,8,8]", "--mgl", "2", "--steps", "1",
                      "--kernels", "on", "--optim", "LBFGS"])
     out = capsys.readouterr().out
-    assert "[on] s per L-BFGS iteration with synced sections" in out
+    assert "[on] s per L-BFGS iteration (median of 1 timed steps)" in out
     assert "objective evaluations" in out
 
 
@@ -482,10 +484,12 @@ def test_profile_neural_small(device, capsys):
     profile_neural.main(["--grid", "[16,8,8]", "--mgl", "2", "--es", "32",
                          "--nn", "16", "--nl", "2", "--steps", "1"])
     out = capsys.readouterr().out
-    assert "s/step with synced sections" in out
+    assert "s/step (median of 1 timed steps)" in out
     assert "traced step wall" in out
-    for label, *_ in profile_neural.SECTIONS:
-        assert label in out
+    for span in ("neural.step", "neural.density", "solve", "neural.backward",
+                 "neural.optimizer"):
+        assert f"   span {span} " in out
+    assert "mlp_forwards 1.00" in out
 
 
 def test_wrappers_refuse_bad_inputs(device):
