@@ -9,13 +9,16 @@ the whole gradient, as ``stop_gradient`` does in the JAX package), one
 backward pass and one ``torch.optim`` step.
 
 ``precond_lag`` > 1 (static filters only) rebuilds the multigrid hierarchy
-from the current network's density every that many steps; the CG operator
-stays exact. ``scan_chunk`` > 1 (static filters only) is the JAX package's
-device-side chunked loop: chunks of that many steps (a multiple of the
-lag), each block of ``lag`` steps rebuilding once at its start, the
-metrics logged and checkpoints taken at chunk boundaries, the first chunk
-counted as warm-up; on CUDA each preconditioner call is replayed from a
-CUDA graph (``multigrid.PrecondGraph``).
+every that many steps; the CG operator stays exact. ``scan_chunk`` > 1
+(static filters only) is the JAX package's device-side chunked loop:
+chunks of that many steps (a multiple of the lag), each block of ``lag``
+steps rebuilding once at its start, the metrics logged and checkpoints
+taken at chunk boundaries, the first chunk counted as warm-up; on CUDA each
+preconditioner call is replayed from a CUDA graph
+(``multigrid.PrecondGraph``). A rebuild is made inside the step that is
+due one, from the density of that step's own forward pass (the network's
+before the optimizer moves it), so the network runs one full-field forward
+a step either way (counted under ``neural.precond_from_step``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from ndr_tpu_torch.models import mlp
 from ndr_tpu_torch.ops import filters as flt
 from ndr_tpu_torch.ops import volume as vol
 from ndr_tpu_torch.utils import timers
+
+timers.counters.setdefault("neural.precond_from_step", 0)
 
 
 def get_mgrid(sidelen: Sequence[int], domain=None, dtype=torch.float32,
@@ -182,13 +187,21 @@ def build_trainer(
     max_volume = cfg.max_volume
 
     @timers.span("neural.step")
-    def train_step(state: NeuralTOState, precond=None):
+    def train_step(state: NeuralTOState, precond=None, rebuild=False, use_graph=False):
+        """One Adam step; the solve takes the lagged preconditioner
+        ``precond`` if given. With ``rebuild`` the preconditioner is first
+        built from this step's own density (into ``precond``'s tensors when
+        given, which keeps its CUDA graph valid; ``use_graph`` turns graph
+        replay on for a new one), and the metrics return it as
+        ``"precond"``."""
         rho = density_fn(state.model, coords, max_volume)
         with torch.no_grad():
-            if precond is None:
-                u, iters = solve(rho.detach(), state.u)
-            else:
-                u, iters = solve(rho.detach(), state.u, precond=precond)
+            if rebuild:
+                with timers.span("neural.precond_build"):
+                    precond = solve.build_precond(rho.detach(), into=precond,
+                                                  use_graph=use_graph)
+                timers.count("neural.precond_from_step")
+            u, iters = solve(rho.detach(), state.u, precond=precond)
         c = 2.0 * topopt.compliance_with_adjoint(rho, u, prob)
         loss = c
         if not hard:
@@ -203,8 +216,10 @@ def build_trainer(
             state.optimizer.step()
         state.u = u
         state.step += 1
-        return state, {"loss": loss.detach(), "compliance": c.detach(),
-                       "cg_iters": iters}
+        metrics = {"loss": loss.detach(), "compliance": c.detach(), "cg_iters": iters}
+        if rebuild:
+            metrics["precond"] = precond
+        return state, metrics
 
     # the mixed-precision solve returns a float64 u for fp32 problems
     mixed = settings.mixed_precision and dtype == torch.float32
@@ -214,7 +229,8 @@ def build_trainer(
 
     @timers.span("neural.precond_build")
     def build_precond_from_state(state: NeuralTOState, into=None, use_graph=False):
-        """The lagged preconditioner for the current network's density."""
+        """The lagged preconditioner for the current network's density, from
+        a forward pass of its own (``train`` builds it inside the step)."""
         with torch.no_grad():
             rho = density_fn(state.model, coords, max_volume)
             return solve.build_precond(rho, into=into, use_graph=use_graph)
@@ -245,21 +261,26 @@ def train(
     ``aux["cg_iters"]`` each step's CG iterations and
     ``aux["cg_passes_at_cap"]`` its passes that stopped at the CG cap;
     ``aux["solver_stats"]`` the ``multigrid.stats`` of the loop (the port's
-    counters and span times)."""
+    counters and span times). With a lag, the step at the start of each
+    block of ``lag`` steps rebuilds the preconditioner from its own
+    forward pass (``train_step(..., rebuild=True)``)."""
     state, train_step, aux = build_trainer(cfg, ncfg, dims=dims, filters=filters,
                                            dtype=dtype, device=device, state=state)
     device = state.u.device
-    build_pc = aux["build_precond_from_state"]
     history: List[float] = []
     step_seconds: List[float] = []
     cg_iters: List[int] = []
     cg_passes_at_cap: List[int] = []
 
-    def counted_step(state, precond):
-        """One training step; its metrics also count the passes at the CG cap."""
+    def counted_step(state, precond, rebuild=False, use_graph=False):
+        """One training step and the preconditioner it leaves; its metrics
+        also count the passes at the CG cap."""
         n0 = mg.stats["cg_passes_at_cap"]
-        state, metrics = train_step(state, precond=precond)
-        return state, dict(metrics, cg_passes_at_cap=mg.stats["cg_passes_at_cap"] - n0)
+        state, metrics = train_step(state, precond=precond, rebuild=rebuild,
+                                    use_graph=use_graph)
+        precond = metrics.pop("precond", precond)
+        return (state, dict(metrics, cg_passes_at_cap=mg.stats["cg_passes_at_cap"] - n0),
+                precond)
 
     def read_back(metrics):
         """A step's metrics as host numbers (its loss and compliance read)."""
@@ -292,10 +313,9 @@ def train(
             t_chunk = time.perf_counter()
             chunk_metrics = []
             for j in range(chunk):
-                if j % block == 0:
-                    precond = build_pc(state, into=precond,
-                                       use_graph=device.type == "cuda")
-                state, metrics = counted_step(state, precond)
+                state, metrics, precond = counted_step(
+                    state, precond, rebuild=j % block == 0,
+                    use_graph=device.type == "cuda")
                 chunk_metrics.append(metrics)
             with timers.span("driver.boundary"):
                 # one read-back per chunk
@@ -314,9 +334,8 @@ def train(
     precond = None
     for i in range(i, max_iter):
         t_step = time.perf_counter()
-        if lag and i % lag == 0:
-            precond = build_pc(state)
-        state, metrics = counted_step(state, precond)
+        state, metrics, precond = counted_step(state, precond,
+                                               rebuild=bool(lag) and i % lag == 0)
         with timers.span("driver.boundary"):
             if filters is not None:
                 filters.update(i)  # per-step schedule update

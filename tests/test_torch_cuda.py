@@ -8,6 +8,7 @@ so it also runs where JAX is not installed:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -17,7 +18,8 @@ from ndr_tpu_torch.fem import kernels
 from ndr_tpu_torch.fem import multigrid as mg
 from ndr_tpu_torch.fem.simulator import problem_from_config
 from ndr_tpu_torch.io.problem import load_problem
-from ndr_tpu_torch.training import train_xdg
+from ndr_tpu_torch.models import mlp
+from ndr_tpu_torch.training import neural, train_xdg
 from ndr_tpu_torch.training.classic import ground_truth_topopt
 from ndr_tpu_torch.utils import profile_neural, profile_oc
 from ndr_tpu_torch.utils.torch_setup import setup
@@ -540,6 +542,38 @@ def test_neural_two_steps_on_card(device, tmp_path, fine_kernel, fine32, fine64)
     assert abs(on.history[0] - off.history[0]) < 1e-4 * abs(off.history[0])
     for f in ("on.vtr", "on_densities.npy", "on.npz", "on_history.json"):
         assert (tmp_path / f).exists(), f
+
+
+def test_precond_from_step_matches_separate_forward_on_card(device, monkeypatch):
+    """The chunked loop on the card (kernels on, bf16 products, each
+    preconditioner call replayed from its CUDA graph), every step building
+    the preconditioner from its own forward, against the schedule that
+    built it in place from a forward pass of its own before the step: the
+    same network at the same parameters on the same coordinates, so the
+    same losses (the compliance, under the hard satisfier) and final
+    weights to the bit. The forward goes through checkpointed chunks."""
+    monkeypatch.setattr(mlp, "mlp_apply_chunked",
+                        functools.partial(mlp.mlp_apply_chunked, max_points=256))
+    cfg = load_problem("problems/3d/bridge.json")
+    ncfg = neural.NeuralTOConfig(embedding_size=64, n_neurons=32, n_layers=3,
+                                 multigrid_levels=2, use_kernels=True,
+                                 matmul_precision="default")
+    dims, steps = (16, 8, 8), 4
+    state, train_step, aux = neural.build_trainer(cfg, ncfg, dims=dims, device="cuda")
+    losses, precond = [], None
+    for _ in range(steps):
+        precond = aux["build_precond_from_state"](state, into=precond, use_graph=True)
+        state, m = train_step(state, precond=precond)
+        losses.append(float(m["loss"]))
+    weights = [p.detach().clone() for p in state.model.parameters()]
+    got, history, aux = neural.train(cfg, ncfg, dims=dims, max_iter=steps, device="cuda",
+                                     log=lambda s: None, scan_chunk=steps)
+    st = aux["solver_stats"]
+    assert st["graph_replays"] > 0 and st["mlp_forwards"] == steps
+    assert st["neural.precond_from_step"] == st["hierarchy_builds"] == steps
+    assert history == losses
+    for p, q in zip(got.model.parameters(), weights):
+        assert torch.equal(p, q)
 
 
 def test_lbfgs_repeats_bitwise_on_card(device):

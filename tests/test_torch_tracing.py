@@ -147,25 +147,60 @@ def test_spans_in_the_profiler_trace():
     assert all("oc.step" in ancestors(e) for e in bisection_ops)
 
 
-@pytest.mark.parametrize("scan_chunk,forwards_per_step", [(2, 2), (0, 1)],
-                         ids=["scan_chunk", "host_loop"])
-def test_mlp_forwards_per_step(scan_chunk, forwards_per_step):
-    """Under scan_chunk the preconditioner is built from its own forward
-    before every step; the host loop without lag has the step's alone."""
+@pytest.mark.parametrize("scan_chunk,lag,from_step", [(2, 0, 4), (0, 0, 0), (0, 2, 2)],
+                         ids=["scan_chunk", "host_loop", "host_loop_lag"])
+def test_mlp_forwards_per_step(scan_chunk, lag, from_step):
+    """One full-field forward a step on every path: under scan_chunk, and on
+    the host loop with a lag, the step that is due a lagged preconditioner
+    builds it from its own density; the host loop without lag builds none."""
     ncfg = neural.NeuralTOConfig(embedding_size=16, n_neurons=16, n_layers=2,
-                                 multigrid_levels=2, use_kernels=False)
+                                 multigrid_levels=2, use_kernels=False, precond_lag=lag)
     steps = 4
     _, _, aux = neural.train(load_problem(BRIDGE), ncfg, dims=DIMS, max_iter=steps,
                              device="cpu", log=lambda s: None, scan_chunk=scan_chunk)
     st = aux["solver_stats"]
-    assert st["mlp_forwards"] == forwards_per_step * steps
+    assert st["mlp_forwards"] == steps
     assert st["neural.step.n"] == steps
-    assert st["neural.density.n"] == forwards_per_step * steps
+    assert st["neural.density.n"] == steps
+    assert st["neural.precond_from_step"] == from_step
+    assert st["neural.precond_build.n"] == from_step
+    if from_step:
+        assert st["neural.precond_from_step"] == st["hierarchy_builds"]
     assert st["cg_iters"] == sum(aux["cg_iters"])
     # per step: the solve's (the coarsest level takes the Newton-Schulz
     # inverse: no factorization's) and two of the step's metrics
     assert st["host_reads"] == (3 * steps + 2 * st["mg.cg.n"] + st["cg_iters"]
                                 + st["hierarchy_builds"])
+
+
+def test_precond_build_span_is_a_child_of_the_step():
+    """Under torch.profiler the build of a step that is due one is a host
+    event inside ``neural.step``, after the step's one ``neural.density``
+    (a step at 4x2x2; each span's parent is read off the trace's raw events
+    as the innermost one that holds it, on the span's thread)."""
+    ncfg = neural.NeuralTOConfig(embedding_size=16, n_neurons=16, n_layers=2,
+                                 multigrid_levels=1, use_kernels=False, cg_iter=4,
+                                 volume_constraint_satisfier="maxed_barrier")
+    state, train_step, _ = neural.build_trainer(load_problem(BRIDGE), ncfg, dims=(4, 2, 2),
+                                                device="cpu")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        state, metrics = train_step(state, rebuild=True)
+    assert metrics["precond"] is not None
+    raw = [(e.start_ns(), e.end_ns(), e.start_thread_id(), e.name())
+           for e in prof.profiler.kineto_results.events()]
+
+    def spans(name):
+        return [e for e in raw if e[3] == name]
+
+    def parent(e):
+        outer = [o for o in raw if o is not e and o[2] == e[2]
+                 and o[0] <= e[0] and e[1] <= o[1]]
+        return min(outer, key=lambda o: o[1] - o[0])[3]
+
+    assert [parent(e) for e in spans("neural.precond_build")] == ["neural.step"]
+    assert [parent(e) for e in spans("neural.density")] == ["neural.step"]
+    assert [parent(e) for e in spans("mg.precond_build")] == ["neural.precond_build"]
+    assert spans("neural.density")[0][1] <= spans("neural.precond_build")[0][0]
 
 
 def test_train_voxelfem_report_and_json(tmp_path, capsys):
