@@ -553,12 +553,21 @@ def _estimate_lmax(lv: LevelState, iters: int) -> torch.Tensor:
     gen = torch.Generator(device=M.device).manual_seed(7)
     v = _zero_dirichlet(lv, torch.randn(lv.grid.nodes_per_dim + (lv.grid.ndim,),
                                         generator=gen, dtype=M.dtype, device=M.device))
-    lam = torch.ones((), dtype=M.dtype, device=M.device)
+    return power_lmax(lambda u: _apply_k_level(lv, u), lambda r: _dinv_apply(lv, r),
+                      lambda u: _zero_dirichlet(lv, u), v, iters)
+
+
+def power_lmax(apply_fn, dinv_fn, zero_fn, v, iters: int,
+               dot=solvers._dot) -> torch.Tensor:
+    """``iters`` power iterations on D^-1 K from the start vector ``v``:
+    1.05 x the last estimate of lambda_max, a 0-d tensor. The operators
+    and the inner product ``dot`` come as arguments, as in
+    :func:`chebyshev_core` (the sharded solver passes its own)."""
+    lam = torch.ones((), dtype=v.dtype, device=v.device)
     for _ in range(iters):
-        w = _dinv_apply(lv, _zero_dirichlet(lv, _apply_k_level(lv, v)))
-        ww = torch.dot(w.reshape(-1), w.reshape(-1))
-        lam = torch.sqrt(ww / torch.clamp(torch.dot(v.reshape(-1), v.reshape(-1)),
-                                          min=1e-30))
+        w = dinv_fn(zero_fn(apply_fn(v)))
+        ww = dot(w, w)
+        lam = torch.sqrt(ww / torch.clamp(dot(v, v), min=1e-30))
         v = w / torch.clamp(torch.sqrt(ww), min=1e-30)
     return 1.05 * lam
 
@@ -1184,14 +1193,7 @@ def mgpcg_solve(
         u, iters = solvers.conjugate_gradient(
             apply_a, b, u0, tol=settings.tol, max_iter=settings.cg_iter,
             precond=precond)
-    _count_pass(iters, settings)
     return u, iters
-
-
-def _count_pass(iters: int, settings: MGSolverSettings) -> None:
-    """Count one CG pass's iterations, and the pass if it stopped at the cap."""
-    stats["cg_iters"] += iters
-    stats["cg_passes_at_cap"] += iters >= settings.cg_iter
 
 
 def _mgpcg_solve_refined(
@@ -1252,7 +1254,6 @@ def _mgpcg_solve_refined(
                 tol=inner_tol, max_iter=settings.cg_iter, precond=precond32,
             )
         u = u + e32.to(f64)
-        _count_pass(iters, settings)
         # an unclipped target means the correction solve's own stop test
         # already implies the outer tolerance: no float64 residual needed
         done = 0.5 * needed >= fp32_floor

@@ -87,6 +87,7 @@ def conjugate_gradient(
     tol: Union[float, torch.Tensor] = 1e-5,
     max_iter: int = 1000,
     precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = _dot,
 ) -> Tuple[torch.Tensor, int]:
     """(Preconditioned) conjugate gradient with ||Ax-b|| <= tol*||b||.
 
@@ -94,14 +95,18 @@ def conjugate_gradient(
     the preconditioner is applied at the top of the loop and the stop
     test is on the force residual relative to ||b||. ``apply_a`` must
     encode the Dirichlet projection; ``b`` and ``x0`` must be zero on
-    constrained components. The stop test reads one scalar back to the
-    host per iteration (:func:`timers.read`).
+    constrained components. ``dot`` is the inner product (the sharded
+    solver's all-reduces over the ranks). The stop test reads one scalar
+    back to the host per iteration (:func:`timers.read`).
+
+    Adds its iterations to the ``cg_iters`` counter, and 1 to
+    ``cg_passes_at_cap`` when it stops at ``max_iter``.
 
     Returns (x, iterations).
     """
     if precond is None:
         precond = lambda r: r
-    b_norm_sq = _dot(b, b)
+    b_norm_sq = dot(b, b)
     # tol*tol*||b||^2 in b's dtype, as the JAX package evaluates it
     if isinstance(tol, torch.Tensor):
         thresh = tol.to(b.dtype) * tol.to(b.dtype) * b_norm_sq
@@ -112,16 +117,18 @@ def conjugate_gradient(
     d = torch.zeros_like(b)
     r_minv_r_old = None
     i = 0
-    while i < max_iter and timers.read(_dot(r, r) > thresh):
+    while i < max_iter and timers.read(dot(r, r) > thresh):
         s = precond(r)
-        r_minv_r = _dot(r, s)
+        r_minv_r = dot(r, s)
         d = s if i == 0 else s + (r_minv_r / r_minv_r_old) * d
         ad = apply_a(d)
-        alpha = r_minv_r / _dot(d, ad)
+        alpha = r_minv_r / dot(d, ad)
         x = x + alpha * d
         r = r - alpha * ad
         r_minv_r_old = r_minv_r
         i += 1
+    timers.count("cg_iters", i)
+    timers.count("cg_passes_at_cap", int(i >= max_iter))
     return x, i
 
 
@@ -147,7 +154,7 @@ def conjugate_gradient_batched(
 
     Adds the loop's iterations (each applies ``apply_a`` to the whole batch)
     to the ``cg_iters`` counter, and 1 to ``cg_passes_at_cap`` where the
-    loop stopped at ``max_iter``, as the MGPCG passes do.
+    loop stopped at ``max_iter``, as :func:`conjugate_gradient` does.
 
     Returns (x, iterations per column, shape (S,))."""
     if precond is None:

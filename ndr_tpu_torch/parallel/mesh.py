@@ -49,6 +49,7 @@ start vector comes from a generator seeded with 7, not
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -62,6 +63,7 @@ from ndr_tpu_torch.fem import operators as ops
 from ndr_tpu_torch.fem import solvers
 from ndr_tpu_torch.fem.simulator import FEMProblem
 from ndr_tpu_torch.grid import Grid
+from ndr_tpu_torch.utils import timers
 
 
 # ---------------------------------------------------------------------------
@@ -495,22 +497,6 @@ def prolong_sharded(u_coarse_local: torch.Tensor, ndim: int) -> torch.Tensor:
     return mg.prolongate(u_coarse_local, ndim)
 
 
-def _sharded_lmax(apply_fn, dinv_fn, zero_fn, shape, dtype, device, mesh: Mesh,
-                  iters: int = 8) -> float:
-    """Power-iteration lambda_max(D^-1 K) with all-reduced dot products,
-    times 1.05 (the sharded twin of ``multigrid._estimate_lmax``)."""
-    gen = torch.Generator(device=device).manual_seed(7)
-    v = zero_fn(torch.randn(shape, generator=gen, dtype=dtype, device=device))
-    v = sync_halo_displacements(v, mesh)
-    lam = torch.ones((), dtype=dtype, device=device)
-    for _ in range(iters):
-        w = dinv_fn(zero_fn(apply_fn(v)))
-        ww = psum_vdot(w, w, mesh)
-        lam = torch.sqrt(ww / torch.clamp(psum_vdot(v, v, mesh), min=1e-30))
-        v = w / torch.clamp(torch.sqrt(ww), min=1e-30)
-    return float(1.05 * lam)
-
-
 # ---------------------------------------------------------------------------
 # Sharded block-Jacobi CG
 # ---------------------------------------------------------------------------
@@ -535,31 +521,11 @@ def make_sharded_cg(sg, prob: FEMProblem, mesh: Mesh, tol: float, max_iter: int)
         def precond(r):
             return zero_d((inv * r.unsqueeze(-2)).sum(-1))
 
-        b = zero_d(b_l)
-        x = zero_d(u0_l)
-        return _pcg(A, precond, b, x, tol * tol * psum_vdot(b, b, mesh), max_iter, mesh)
+        return solvers.conjugate_gradient(A, zero_d(b_l), zero_d(u0_l), tol=tol,
+                                          max_iter=max_iter, precond=precond,
+                                          dot=functools.partial(psum_vdot, mesh=mesh))
 
     return solve
-
-
-def _pcg(A, precond, b, x, thresh_sq, max_iter: int, mesh: Mesh):
-    """The JAX package's restructured PCG with all-reduced dot products
-    (the stop test reads one scalar back per iteration)."""
-    r = b - A(x)
-    d = torch.zeros_like(b)
-    rz_old = None
-    i = 0
-    while i < max_iter and bool(psum_vdot(r, r, mesh) > thresh_sq):
-        z = precond(r)
-        rz = psum_vdot(r, z, mesh)
-        d = z if i == 0 else z + (rz / rz_old) * d
-        ad = A(d)
-        alpha = rz / psum_vdot(d, ad, mesh)
-        x = x + alpha * d
-        r = r - alpha * ad
-        rz_old = rz
-        i += 1
-    return x, i
 
 
 # ---------------------------------------------------------------------------
@@ -635,6 +601,7 @@ def _make_sharded_mgpcg(sg, prob: FEMProblem, num_levels: int, mesh: Mesh, tol: 
     for l in range(1, num_levels + 1):
         lmax_bounds[l] = mg._pencil_lmax_bound(c_stacks[l], ndim)
     coarse_mask = torch.as_tensor(level_masks[-1].reshape(-1), device=device)
+    dot = functools.partial(psum_vdot, mesh=mesh)
     K0_by_dtype = {}
 
     def K0_of(dtype):
@@ -690,10 +657,14 @@ def _make_sharded_mgpcg(sg, prob: FEMProblem, num_levels: int, mesh: Mesh, tol: 
                         Dinv=ops.invert_blocks(halo_sum_forces(blocks, mesh)),
                         lmax=lmax_bounds[l], Ke=Ke)
             if lmax_power_iters > 0:
-                # inflated power estimate, min'ed with the guaranteed bound
-                est = (1.2 / 1.05) * _sharded_lmax(
-                    lv.apply, lv.dinv, lv.zero, lg.nodes_per_dim + (ndim,), young.dtype,
-                    device, mesh, iters=lmax_power_iters)
+                # inflated power estimate, min'ed with the guaranteed bound;
+                # the seeded start vector's shared planes made consistent
+                gen = torch.Generator(device=device).manual_seed(7)
+                v = sync_halo_displacements(lv.zero(torch.randn(
+                    lg.nodes_per_dim + (ndim,), generator=gen, dtype=young.dtype,
+                    device=device)), mesh)
+                est = (1.2 / 1.05) * timers.read(mg.power_lmax(
+                    lv.apply, lv.dinv, lv.zero, v, lmax_power_iters, dot=dot))
                 lv.lmax = min(lv.lmax, est)
             levels.append(lv)
         return levels
@@ -762,9 +733,8 @@ def _make_sharded_mgpcg(sg, prob: FEMProblem, num_levels: int, mesh: Mesh, tol: 
             return lv0.zero(vcycle(levels, coarse, 0, torch.zeros_like(r), r,
                                    x_is_zero=True))
 
-        b = lv0.zero(b)
-        thresh_sq = tol_ * tol_ * psum_vdot(b, b, mesh)
-        return _pcg(A, precond, b, lv0.zero(u0), thresh_sq, max_iter, mesh)
+        return solvers.conjugate_gradient(A, lv0.zero(b), lv0.zero(u0), tol=tol_,
+                                          max_iter=max_iter, precond=precond, dot=dot)
 
     def solve(u0_l, rho_l, b_l):
         levels = build_levels(rho_l)

@@ -9,14 +9,12 @@ warm-started), OC optimizer, run as a host loop of eager steps; or, with
 
 ``precond_lag`` > 1 rebuilds the multigrid hierarchy every that many
 steps (the CG operator stays exact; the lagged hierarchy only
-preconditions), and early, on the next step, when a step's CG count
-exceeds the first lagged solve's by more than 4. ``scan_chunk`` > 1 is the
-JAX package's device-side chunked loop: chunks of that many steps (a
-multiple of the lag) in which each block of ``lag`` steps rebuilds once at
-its start, with no early rebuild; the metrics are logged, and callbacks
-and snapshots run, at chunk boundaries; the steps that do not fill a chunk
-run in the host loop. On CUDA the chunk replays each preconditioner call
-from a CUDA graph (``multigrid.PrecondGraph``), captured once per run.
+preconditions), and in the host loop early, on the next step, when a
+step's CG count exceeds the first lagged solve's by more than 4.
+``scan_chunk`` > 1 is the JAX package's device-side chunked loop, whose
+chunks replay each preconditioner call from a CUDA graph on CUDA
+(``multigrid.PrecondGraph``); callbacks and snapshots run at chunk
+boundaries. :mod:`ndr_tpu_torch.training.schedule` runs both loops.
 """
 
 from __future__ import annotations
@@ -35,6 +33,7 @@ from ndr_tpu_torch.fem import topopt
 from ndr_tpu_torch.fem.simulator import problem_from_config
 from ndr_tpu_torch.ops import filters as flt
 from ndr_tpu_torch.ops import lbfgs
+from ndr_tpu_torch.training import schedule
 from ndr_tpu_torch.utils import timers
 
 
@@ -177,66 +176,52 @@ def ground_truth_topopt(
     state = topopt.oc_init(top, x0, u_dtype=torch.float64 if mixed else dtype)
 
     history: List[float] = []
-    step_seconds: List[float] = []
-    cg_iters: List[int] = []
-    cg_passes_at_cap: List[int] = []
-    use_lag = precond_lag > 1 and hasattr(solve, "build_precond")
-    lag = precond_lag if use_lag else 0
+    # the MGPCG solver takes a lagged preconditioner; the sharded and the
+    # mgl=0 solves build their own
+    lagged = hasattr(solve, "build_precond")
+    sched = schedule.Schedule(lag=precond_lag if lagged and precond_lag > 1 else 0,
+                              scan_chunk=scan_chunk if lagged else 0)
+    it_ref = None  # the CG count of the first solve after a build
 
-    def build_precond(x, into=None, use_graph=False):
-        with torch.no_grad():
-            return solve.build_precond(top.physical_density(x), into=into,
-                                       use_graph=use_graph)
+    def step(precond, rebuild, use_graph):
+        nonlocal state, it_ref
+        if rebuild:
+            with torch.no_grad():
+                precond = solve.build_precond(top.physical_density(state.x), into=precond,
+                                              use_graph=use_graph)
+            it_ref = None
+        state, metrics = topopt.oc_step(top, state, m=oc_move, ctol=oc_ctol,
+                                        precond=precond)
+        if it_ref is None:
+            it_ref = metrics["cg_iters"]
+        elif metrics["cg_iters"] > it_ref + 4:
+            sched.force_rebuild()  # the lagged hierarchy stopped paying
+        return metrics, precond
 
-    # host loop: the lagged state, its age and the first lagged CG count
-    lag_state = {"precond": None, "age": 0, "it_ref": None}
-
-    def counted(step, *args, **kwargs):
-        """One OC step; its metrics also count the passes at the CG cap."""
-        n0 = mg.stats["cg_passes_at_cap"]
-        s, metrics = step(*args, **kwargs)
-        return s, dict(metrics, cg_passes_at_cap=mg.stats["cg_passes_at_cap"] - n0)
-
-    def host_step(s):
-        if not use_lag:
-            return topopt.oc_step(top, s, m=oc_move, ctol=oc_ctol)
-        ls = lag_state
-        if ls["precond"] is None or ls["age"] >= lag:
-            ls["precond"] = build_precond(s.x)
-            ls["age"], ls["it_ref"] = 0, None
-        s, metrics = topopt.oc_step(top, s, m=oc_move, ctol=oc_ctol,
-                                    precond=ls["precond"])
-        ls["age"] += 1
-        if ls["it_ref"] is None:
-            ls["it_ref"] = metrics["cg_iters"]
-        elif metrics["cg_iters"] > ls["it_ref"] + 4:
-            ls["age"] = lag  # the lagged hierarchy stopped paying: rebuild next step
-        return s, metrics
-
-    def log_step(i, dt, metrics):
-        c2 = 2.0 * metrics["compliance"]
-        history.append(c2)
-        cg_iters.append(int(metrics["cg_iters"]))
-        cg_passes_at_cap.append(int(metrics["cg_passes_at_cap"]))
-        if i % log_every == 0 or i == max_iter - 1:
-            log(
-                f"Total Steps: {i}, Runtime: {dt:.2f}, Compliance loss "
-                f"{c2:.6f}, constraint {metrics['constraint']:.2e}, "
-                f"lambda {metrics['lambda']:.4g}, "
-                f"cg_iters {metrics['cg_iters']}\n"
-            )
-
-    def boundary(i, s):
+    def notify(i, s):
         if callback is not None:
             callback(i, s)
         if snapshot_cb is not None:
             snapshot_cb(i, s, lambda s=s: top.physical_density(s.x))
 
-    chunk = 0
-    if scan_chunk > 1 and hasattr(solve, "cfg"):
-        chunk = max(1, scan_chunk // lag) * lag if lag else scan_chunk
-    block = lag or 1  # steps per hierarchy build inside a chunk
-    chunk_precond = None
+    def boundary(i, window, dt):
+        nonlocal t_iter
+        # a chunk's lines give its steps' mean wall, a host step's line the
+        # wall since the line before it
+        runtime = dt if len(window) > 1 else time.perf_counter() - t_iter
+        for j, metrics in enumerate(window):
+            c2 = 2.0 * metrics["compliance"]
+            history.append(c2)
+            if (i + j) % log_every == 0 or i + j == max_iter - 1:
+                log(
+                    f"Total Steps: {i + j}, Runtime: {runtime:.2f}, Compliance loss "
+                    f"{c2:.6f}, constraint {metrics['constraint']:.2e}, "
+                    f"lambda {metrics['lambda']:.4g}, "
+                    f"cg_iters {metrics['cg_iters']}\n"
+                )
+        t_iter = time.perf_counter()
+        notify(i + len(window) - 1, state)
+
     stats0 = dict(mg.stats)
     t_start = time.perf_counter()
     t_iter = t_start
@@ -245,43 +230,16 @@ def ground_truth_topopt(
         with timers.span("LBFGS optimization"):
             res = lbfgs.lbfgs_topopt(
                 top, x0, max_iter=max_iter, log=log, log_every=log_every,
-                callback=lambda i, x: boundary(i, dataclasses.replace(state, x=x)))
+                callback=lambda i, x: notify(i, dataclasses.replace(state, x=x)))
         history, step_seconds = list(res.history), res.step_seconds
         evaluations = res.evaluations
         state = dataclasses.replace(state, x=res.x)
     else:
         with timers.span("OC optimization"):
-            idx = 0
-            while chunk and idx + chunk <= max_iter:
-                t_chunk = time.perf_counter()
-                chunk_metrics = []
-                for j in range(chunk):
-                    if j % block == 0:
-                        chunk_precond = build_precond(state.x, into=chunk_precond,
-                                                      use_graph=device.type == "cuda")
-                    state, metrics = counted(topopt.oc_step, top, state, m=oc_move,
-                                             ctol=oc_ctol, precond=chunk_precond)
-                    chunk_metrics.append(metrics)
-                now = time.perf_counter()  # oc_step ends on host reads: synced
-                dt = (now - t_chunk) / chunk
-                with timers.span("driver.boundary"):
-                    for j, metrics in enumerate(chunk_metrics):
-                        step_seconds.append(dt)
-                        log_step(idx + j, dt, metrics)
-                    idx += chunk
-                    t_iter = time.perf_counter()
-                    boundary(idx - 1, state)
-            for idx in range(idx, max_iter):
-                t_step = time.perf_counter()
-                state, metrics = counted(host_step, state)
-                now = time.perf_counter()  # oc_step ends on host reads: synced
-                with timers.span("driver.boundary"):
-                    step_seconds.append(now - t_step)
-                    log_step(idx, now - t_iter, metrics)
-                    t_iter = time.perf_counter()
-                    boundary(idx, state)
+            # oc_step ends on host reads: its clock needs no sync
+            sched.run(max_iter, step, boundary, use_graph=device.type == "cuda")
+        step_seconds = sched.step_seconds
     solver_stats = timers.delta(stats0)
-    chunk_precond = lag_state["precond"] = None  # free the lagged hierarchies
 
     # Final evaluation + binary compliance with the reference's semantics:
     # both the binarized field and the final soft field pass through the
@@ -317,6 +275,6 @@ def ground_truth_topopt(
         step_seconds=step_seconds,
         solver_stats=solver_stats,
         evaluations=evaluations,
-        cg_iters=cg_iters,
-        cg_passes_at_cap=cg_passes_at_cap,
+        cg_iters=sched.cg_iters,
+        cg_passes_at_cap=sched.cg_passes_at_cap,
     )

@@ -10,15 +10,13 @@ backward pass and one ``torch.optim`` step.
 
 ``precond_lag`` > 1 (static filters only) rebuilds the multigrid hierarchy
 every that many steps; the CG operator stays exact. ``scan_chunk`` > 1
-(static filters only) is the JAX package's device-side chunked loop:
-chunks of that many steps (a multiple of the lag), each block of ``lag``
-steps rebuilding once at its start, the metrics logged and checkpoints
-taken at chunk boundaries, the first chunk counted as warm-up; on CUDA each
-preconditioner call is replayed from a CUDA graph
-(``multigrid.PrecondGraph``). A rebuild is made inside the step that is
-due one, from the density of that step's own forward pass (the network's
-before the optimizer moves it), so the network runs one full-field forward
-a step either way (counted under ``neural.precond_from_step``).
+(static filters only) is the JAX package's device-side chunked loop
+(:mod:`ndr_tpu_torch.training.schedule` runs both loops), its checkpoints
+taken at chunk boundaries and its first chunk counted as warm-up. A
+rebuild is made inside the step that is due one, from the density of that
+step's own forward pass (the network's before the optimizer moves it), so
+the network runs one full-field forward a step either way (counted under
+``neural.precond_from_step``).
 """
 
 from __future__ import annotations
@@ -38,6 +36,7 @@ from ndr_tpu_torch.io.problem import ProblemConfig
 from ndr_tpu_torch.models import mlp
 from ndr_tpu_torch.ops import filters as flt
 from ndr_tpu_torch.ops import volume as vol
+from ndr_tpu_torch.training import schedule
 from ndr_tpu_torch.utils import timers
 
 timers.counters.setdefault("neural.precond_from_step", 0)
@@ -126,11 +125,6 @@ def make_optimizer(model: torch.nn.Module, ncfg: NeuralTOConfig) -> torch.optim.
         return torch.optim.AdamW(model.parameters(), lr=ncfg.learning_rate,
                                  weight_decay=ncfg.weight_decay)
     return torch.optim.Adam(model.parameters(), lr=ncfg.learning_rate)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def build_trainer(
@@ -227,17 +221,8 @@ def build_trainer(
                      device=device)
     state0 = NeuralTOState(model=model, optimizer=optimizer, u=u0, step=step)
 
-    @timers.span("neural.precond_build")
-    def build_precond_from_state(state: NeuralTOState, into=None, use_graph=False):
-        """The lagged preconditioner for the current network's density, from
-        a forward pass of its own (``train`` builds it inside the step)."""
-        with torch.no_grad():
-            rho = density_fn(state.model, coords, max_volume)
-            return solve.build_precond(rho, into=into, use_graph=use_graph)
-
     aux = dict(prob=prob, grid=grid, coords=coords, density_fn=density_fn,
-               solve=solve, mlp_cfg=mlp_cfg, max_volume=max_volume,
-               build_precond_from_state=build_precond_from_state)
+               solve=solve, mlp_cfg=mlp_cfg, max_volume=max_volume)
     return state0, train_step, aux
 
 
@@ -268,92 +253,58 @@ def train(
                                            dtype=dtype, device=device, state=state)
     device = state.u.device
     history: List[float] = []
-    step_seconds: List[float] = []
-    cg_iters: List[int] = []
-    cg_passes_at_cap: List[int] = []
+    # the lag and the chunked loop run with static filters only, as in the
+    # JAX package (adaptive filters update at every host step)
+    static = filters is None
+    sched = schedule.Schedule(
+        lag=ncfg.precond_lag if static and ncfg.precond_lag > 1 else 0,
+        scan_chunk=scan_chunk if static else 0)
 
-    def counted_step(state, precond, rebuild=False, use_graph=False):
-        """One training step and the preconditioner it leaves; its metrics
-        also count the passes at the CG cap."""
-        n0 = mg.stats["cg_passes_at_cap"]
+    def step(precond, rebuild, use_graph):
+        nonlocal state
         state, metrics = train_step(state, precond=precond, rebuild=rebuild,
                                     use_graph=use_graph)
-        precond = metrics.pop("precond", precond)
-        return (state, dict(metrics, cg_passes_at_cap=mg.stats["cg_passes_at_cap"] - n0),
-                precond)
+        return metrics, metrics.pop("precond", precond)
 
-    def read_back(metrics):
-        """A step's metrics as host numbers (its loss and compliance read)."""
-        return {k: timers.read(v) if isinstance(v, torch.Tensor) else v
-                for k, v in metrics.items()}
+    def finish(i, window):
+        """The window's metrics as host numbers (one read-back a window),
+        the device synchronized."""
+        if filters is not None:
+            filters.update(i)  # per-step schedule update
+        window = [{k: timers.read(v) if isinstance(v, torch.Tensor) else v
+                   for k, v in metrics.items()} for metrics in window]
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return window
 
-    def log_step(i, step_no, metrics):
-        c = float(metrics["compliance"])
-        history.append(c)
-        cg_iters.append(int(metrics["cg_iters"]))
-        cg_passes_at_cap.append(int(metrics["cg_passes_at_cap"]))
-        if i % log_every == 0 or i == max_iter - 1:
-            log(
-                f"Total Steps: {step_no}, Compliance loss {c:.6f}, "
-                f"loss {float(metrics['loss']):.6f}, "
-                f"cg_iters {int(metrics['cg_iters'])}\n"
-            )
+    def boundary(i, window, dt):
+        nonlocal t_warm, n_warm
+        for j, metrics in enumerate(window):
+            c = float(metrics["compliance"])
+            history.append(c)
+            if (i + j) % log_every == 0 or i + j == max_iter - 1:
+                log(
+                    f"Total Steps: {state.step - len(window) + 1 + j}, Compliance loss "
+                    f"{c:.6f}, loss {float(metrics['loss']):.6f}, "
+                    f"cg_iters {int(metrics['cg_iters'])}\n"
+                )
+        if i == 0:
+            t_warm, n_warm = time.perf_counter(), len(window)
+        if checkpoint_cb is not None:
+            checkpoint_cb(i + len(window) - 1, state)
 
     stats0 = dict(mg.stats)
     t0 = time.perf_counter()
-    t_warm = t0  # reset after the first step (chunk) to exclude its set-up
+    t_warm = t0  # reset after the first window to exclude its set-up
     n_warm = 1   # steps inside the warm-up window
-    i = 0
-    lag = ncfg.precond_lag if filters is None and ncfg.precond_lag > 1 else 0
-    if scan_chunk > 1 and filters is None:
-        chunk = max(1, scan_chunk // lag) * lag if lag else scan_chunk
-        block = lag or 1  # steps per hierarchy build inside a chunk
-        precond = None
-        while i + chunk <= max_iter:
-            t_chunk = time.perf_counter()
-            chunk_metrics = []
-            for j in range(chunk):
-                state, metrics, precond = counted_step(
-                    state, precond, rebuild=j % block == 0,
-                    use_graph=device.type == "cuda")
-                chunk_metrics.append(metrics)
-            with timers.span("driver.boundary"):
-                # one read-back per chunk
-                chunk_metrics = [read_back(m) for m in chunk_metrics]
-                _sync(device)
-                dt = (time.perf_counter() - t_chunk) / chunk
-                for j, metrics in enumerate(chunk_metrics):
-                    step_seconds.append(dt)
-                    log_step(i + j, state.step - chunk + 1 + j, metrics)
-                i += chunk
-                if i == chunk:
-                    t_warm, n_warm = time.perf_counter(), chunk
-                if checkpoint_cb is not None:
-                    checkpoint_cb(i - 1, state)
-
-    precond = None
-    for i in range(i, max_iter):
-        t_step = time.perf_counter()
-        state, metrics, precond = counted_step(state, precond,
-                                               rebuild=bool(lag) and i % lag == 0)
-        with timers.span("driver.boundary"):
-            if filters is not None:
-                filters.update(i)  # per-step schedule update
-            _sync(device)
-            step_seconds.append(time.perf_counter() - t_step)
-            log_step(i, state.step, read_back(metrics))
-            if i == 0:
-                t_warm, n_warm = time.perf_counter(), 1
-            if checkpoint_cb is not None:
-                checkpoint_cb(i, state)
-    precond = None  # free the lagged hierarchy
+    sched.run(max_iter, step, boundary, finish=finish, use_graph=device.type == "cuda")
     t1 = time.perf_counter()
     log(f"Resolution runtime: {t1 - t0:.2f}s "
         f"({max_iter / max(t1 - t0, 1e-9):.2f} it/s; steady-state "
         f"{max(max_iter - n_warm, 1) / max(t1 - t_warm, 1e-9):.2f} it/s)\n")
-    aux["step_seconds"] = step_seconds
-    aux["cg_iters"] = cg_iters
-    aux["cg_passes_at_cap"] = cg_passes_at_cap
+    aux["step_seconds"] = sched.step_seconds
+    aux["cg_iters"] = sched.cg_iters
+    aux["cg_passes_at_cap"] = sched.cg_passes_at_cap
     aux["solver_stats"] = timers.delta(stats0)
     return state, history, aux
 

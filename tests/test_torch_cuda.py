@@ -562,7 +562,9 @@ def test_precond_from_step_matches_separate_forward_on_card(device, monkeypatch)
     state, train_step, aux = neural.build_trainer(cfg, ncfg, dims=dims, device="cuda")
     losses, precond = [], None
     for _ in range(steps):
-        precond = aux["build_precond_from_state"](state, into=precond, use_graph=True)
+        with torch.no_grad():
+            rho = aux["density_fn"](state.model, aux["coords"], aux["max_volume"])
+            precond = aux["solve"].build_precond(rho, into=precond, use_graph=True)
         state, m = train_step(state, precond=precond)
         losses.append(float(m["loss"]))
     weights = [p.detach().clone() for p in state.model.parameters()]

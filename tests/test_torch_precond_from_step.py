@@ -1,7 +1,8 @@
 """The lagged preconditioner built from the training step's own forward
 pass: ``neural.train`` against the schedule that built it from a forward
-pass of its own before the step (``aux["build_precond_from_state"]``, then
-``train_step(state, precond=...)``), on the CPU.
+pass of its own before the step (``aux["density_fn"]``, then
+``aux["solve"].build_precond`` and ``train_step(state, precond=...)``), on
+the CPU.
 
 Both schedules read the same network at the same parameters on the same
 coordinates, so the preconditioner, the CG counts, the losses and the
@@ -38,7 +39,9 @@ def _separate_forward(cfg, ncfg, steps, block, dtype):
     metrics, precond = [], None
     for i in range(steps):
         if i % block == 0:
-            precond = aux["build_precond_from_state"](state, into=precond)
+            with torch.no_grad():
+                rho = aux["density_fn"](state.model, aux["coords"], aux["max_volume"])
+                precond = aux["solve"].build_precond(rho, into=precond)
         state, m = train_step(state, precond=precond)
         metrics.append(m)
     return state, metrics
